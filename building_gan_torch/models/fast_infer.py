@@ -1,0 +1,38 @@
+"""Fast generator inference: the generator's forward with its hourglass fused.
+
+Port of ``building_gan_tpu/models/fast_infer.py``.  ``prepare`` packs the
+hourglass weights once; ``infer`` runs the generator's MLPs and pooling as
+plain PyTorch and the hourglass through ``ops.hourglass.hourglass_fwd``: the
+CUDA kernel on a CUDA batch, its plain version on a CPU batch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.hourglass import hourglass_channel_pairs, hourglass_fwd, pack_gat_weights
+
+
+def prepare(model, cfg) -> dict:
+    """Pack the hourglass weights of a ``GridVoxelGNNGenerator`` for ``infer``."""
+    if cfg.GENERATOR_CONV_TYPE != "GATCONV":
+        raise NotImplementedError("the fused hourglass supports GATCONV only")
+    Ws, atts, vecs = pack_gat_weights(model.encoder)
+    chans = hourglass_channel_pairs(
+        cfg.GENERATOR_HIDDEN_DIM, cfg.GENERATOR_ENCODER_REPEAT, cfg.HOURGLASS_MIN_CHANNELS
+    )
+    return {"Ws": Ws, "atts": atts, "vecs": vecs, "chans": chans}
+
+
+@torch.no_grad()
+def infer(model, packed: dict, batch, z: torch.Tensor, gumbel_noise=None, generator=None):
+    """(logits, label_hard, label_soft), grid-shaped, with the fused hourglass."""
+    x, encoded_matched, voxel_x, zf, mask, gid = model.encode(batch, z)
+    B, F, Y, X = batch.mask.shape
+    encoded = hourglass_fwd(
+        x.reshape(B, F, Y, X, -1).contiguous(),
+        batch.mask.float().contiguous(),
+        packed["Ws"], packed["atts"], packed["vecs"], packed["chans"],
+        gid=batch.gid, num_graphs=batch.graphs_per_slot,
+    ).reshape(B, F * Y * X, -1)
+    return model.decode(batch, encoded, x, encoded_matched, voxel_x, zf, gumbel_noise, generator)

@@ -1,0 +1,209 @@
+"""Grid-layout layers: GraphNorm, GAT conv, the hourglass stack, matched pooling.
+
+Each mirrors its counterpart in ``building_gan_tpu/models/grid_layers.py``
+on the flattened-row layout ``(B, R, C)``, R = F*Y*X.  Submodules and
+parameters are named after the reference ``state_dict`` layout
+(``encoder.module_{4i}.lin.weight``, ``encoder.module_{4i+1}.mean_scale``,
+...), so converted weights load with ``load_state_dict`` unchanged.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import stencil
+
+
+def hourglass_channels(hidden_dim: int, repeat: int, min_channels: int = 1) -> list[int]:
+    """The hourglass schedule: ``repeat`` halvings then ``repeat`` doublings,
+    each clamped at ``min_channels`` (1 = the reference schedule).
+
+    hidden 128, repeat 7 -> [64, 32, 16, 8, 4, 2, 1, 2, 4, ..., 128].
+    """
+    if not 1 <= min_channels <= hidden_dim:
+        raise ValueError(
+            f"HOURGLASS_MIN_CHANNELS must be in [1, hidden_dim={hidden_dim}], "
+            f"got {min_channels}"
+        )
+    channels = []
+    c = hidden_dim
+    for _ in range(repeat):
+        c //= 2
+        channels.append(max(c, min_channels))
+    for _ in range(repeat):
+        c *= 2
+        channels.append(max(c, min_channels))
+    return channels
+
+
+def graph_norm(
+    x: torch.Tensor,  # (B, R, C)
+    mask: torch.Tensor,  # (B, R)
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    mean_scale: torch.Tensor,
+    eps: float = 1e-5,
+    gid: torch.Tensor | None = None,  # (B, R) building index within the slot
+    num_graphs: int = 1,
+) -> torch.Tensor:
+    """GraphNorm with learned mean scale, statistics per slot or per (slot, gid).
+
+    One-pass moments, as the JAX package computes them:
+    ``s = E[x] * mean_scale``, ``var = E[x^2] - 2 s E[x] + s^2``,
+    ``y = x * w / sqrt(var + eps) + (b - s * w / sqrt(var + eps))``.
+    Masked cells take no part in the statistics and come out as 0.  The
+    statistics are taken in float32, or in x's dtype when it is wider.
+    """
+    dt = torch.promote_types(x.dtype, torch.float32)
+    m = mask.to(dt)[..., None]
+    xf = x.to(dt)
+    if gid is not None and num_graphs > 1:
+        oh = F.one_hot(gid.long().clamp(min=0), num_graphs).to(dt)
+        oh = oh * ((gid >= 0) & (gid < num_graphs)).to(dt)[..., None] * m  # (B, R, K)
+        counts = oh.sum(dim=1).clamp(min=1.0)  # (B, K)
+        s1 = torch.einsum("brk,brc->bkc", oh, xf)
+        s2 = torch.einsum("brk,brc->bkc", oh, xf * xf)
+        mean = s1 / counts[..., None]
+        ex2 = s2 / counts[..., None]
+        s = mean * mean_scale
+        var = torch.clamp(ex2 - 2.0 * s * mean + s * s, min=0.0)
+        inv = weight * torch.rsqrt(var + eps)
+        shift_ = bias - s * inv
+        both = torch.cat([inv, shift_], dim=-1)  # (B, K, 2C)
+        t = torch.einsum("brk,bkc->brc", oh, both)
+        C = inv.shape[-1]
+        return (xf * t[..., :C] + t[..., C:]).to(x.dtype)
+    denom = mask.to(dt).sum(dim=1).clamp(min=1.0)[:, None, None]
+    mean = (xf * m).sum(dim=1, keepdim=True) / denom
+    ex2 = (xf * xf * m).sum(dim=1, keepdim=True) / denom
+    s = mean * mean_scale
+    var = torch.clamp(ex2 - 2.0 * s * mean + s * s, min=0.0)
+    inv = weight * torch.rsqrt(var + eps)
+    return ((xf * inv + (bias - s * inv)) * m).to(x.dtype)
+
+
+class GridGraphNorm(nn.Module):
+    """GraphNorm over grid cells (per slot, or per building with a gid plane)."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.mean_scale = nn.Parameter(torch.ones(features))
+
+    def forward(self, x, mask, gid=None, num_graphs: int = 1):
+        return graph_norm(
+            x, mask, self.weight, self.bias, self.mean_scale, self.eps, gid, num_graphs
+        )
+
+
+class GridGATConv(nn.Module):
+    """Single-head GAT over the 6-neighbourhood (PyG GATConv defaults).
+
+    ``a_src`` and ``a_dst`` come from the folded GEMM ``x @ [W, W att_src,
+    W att_dst]``, as in the JAX layer; the fused kernel takes them from
+    ``(x W) . att`` instead (same value, other rounding).
+    """
+
+    def __init__(self, in_features: int, features: int, negative_slope: float = 0.2):
+        super().__init__()
+        self.negative_slope = negative_slope
+        self.lin = nn.Linear(in_features, features, bias=False)
+        # torch layout of the reference: (1, heads=1, C)
+        bound = math.sqrt(6.0 / (features + 1))
+        self.att_src = nn.Parameter(torch.empty(1, 1, features).uniform_(-bound, bound))
+        self.att_dst = nn.Parameter(torch.empty(1, 1, features).uniform_(-bound, bound))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x, mask, grid_shape, gid=None):
+        w = self.lin.weight.t()  # (in, out)
+        C = w.shape[1]
+        wa = torch.cat(
+            [w, w @ self.att_src.reshape(C, 1), w @ self.att_dst.reshape(C, 1)], dim=1
+        )
+        ha = x @ wa
+        h = ha[..., :C]
+        out = stencil.stencil_gat_flat(
+            h, ha[..., C], ha[..., C + 1], mask, grid_shape,
+            negative_slope=self.negative_slope, gid=gid,
+        )
+        return out + self.bias
+
+
+class GridHourglass(nn.Module):
+    """Hourglass of GAT conv -> GraphNorm -> ReLU layers (deterministic forward).
+
+    Layer i's conv is ``module_{4i}`` and its norm ``module_{4i+1}``; the
+    reference's ReLU and Dropout at ``4i+2``, ``4i+3`` hold no parameters.
+    Dropout comes with the training path, so only the deterministic forward
+    exists here.
+    """
+
+    def __init__(self, hidden_dim: int, repeat: int, min_channels: int = 1,
+                 conv_type: str = "GATCONV"):
+        super().__init__()
+        if conv_type != "GATCONV":
+            raise NotImplementedError(f"grid hourglass conv {conv_type!r}: only GATCONV is ported")
+        self.channels = hourglass_channels(hidden_dim, repeat, min_channels)
+        cin = hidden_dim
+        for i, ch in enumerate(self.channels):
+            self.add_module(f"module_{4 * i}", GridGATConv(cin, ch))
+            self.add_module(f"module_{4 * i + 1}", GridGraphNorm(ch))
+            cin = ch
+
+    def layers(self):
+        for i in range(len(self.channels)):
+            yield getattr(self, f"module_{4 * i}"), getattr(self, f"module_{4 * i + 1}")
+
+    def forward(self, x, mask, grid_shape, gid=None, num_graphs: int = 1):
+        """x (B, R, hidden) on the flattened-row layout -> (B, R, hidden)."""
+        for conv, norm in self.layers():
+            x = conv(x, mask, grid_shape, gid=gid)
+            x = torch.relu(norm(x, mask, gid=gid, num_graphs=num_graphs))
+        return x
+
+
+def grid_type_matched_pooling(
+    local_x: torch.Tensor,  # (B, NL, C)
+    local_type: torch.Tensor,  # (B, NL)
+    local_mask: torch.Tensor,  # (B, NL)
+    voxel_type: torch.Tensor,  # (B, R) or (B, F, Y, X)
+    num_classes: int,
+    local_gid: torch.Tensor | None = None,  # (B, NL)
+    gid: torch.Tensor | None = None,  # like voxel_type
+    num_graphs: int = 1,
+) -> torch.Tensor:
+    """Per-cell mean of the program nodes of the cell's type (and building).
+
+    A per-(graph, type) mean table built with one einsum, read back with a
+    one-hot matmul.  Multi-building slots key the table on (building, type).
+    """
+    B = voxel_type.shape[0]
+    cells = tuple(voxel_type.shape[1:])
+    C = local_x.shape[-1]
+    lx = local_x.float()
+    lm = local_mask.float()[..., None]
+
+    if gid is not None and num_graphs > 1:
+        kt = num_graphs * num_classes
+        key_l = local_gid.long() * num_classes + local_type.long()
+        onehot_l = F.one_hot(key_l, kt).float() * lm
+        sums = torch.einsum("bnt,bnc->btc", onehot_l, lx)
+        counts = onehot_l.sum(dim=1)
+        table = sums / counts.clamp(min=1.0)[..., None] * (counts > 0)[..., None]
+        key_v = (gid.long() * num_classes + voxel_type.long()).reshape(B, -1)
+        out = torch.einsum("brt,btc->brc", F.one_hot(key_v, kt).float(), table)
+        return out.reshape((B,) + cells + (C,)).to(local_x.dtype)
+
+    onehot_l = F.one_hot(local_type.long(), num_classes).float() * lm
+    sums = torch.einsum("bnt,bnc->btc", onehot_l, lx)
+    counts = onehot_l.sum(dim=1)
+    table = sums / counts.clamp(min=1.0)[..., None] * (counts > 0)[..., None]
+    onehot_v = F.one_hot(voxel_type.reshape(B, -1).long(), num_classes).float()
+    out = torch.einsum("brt,btc->brc", onehot_v, table)
+    return out.reshape((B,) + cells + (C,)).to(local_x.dtype)

@@ -1,0 +1,105 @@
+"""Card-only tests of the port's CUDA kernel and its served path.
+
+Marked ``cuda``; each skips where torch sees no GPU (decided in the fixture,
+at run time).  This file imports no JAX, so it also runs on a machine that
+has only the port's dependencies:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+
+(``--noconftest`` because tests/conftest.py imports JAX).  f32 with TF32
+off.  The kernel is held against the plain version run in float64: its max
+abs error must be at most 4x that of the plain version run in float32, plus
+1e-4.  The 1-channel GraphNorm layers of the 128 -> 1 -> 128 stack magnify
+f32 rounding to ~1e-2 on a few outputs, so no fixed tolerance fits both that
+and a fault, which moves outputs by their own size.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from building_gan_torch.config import Configuration
+from building_gan_torch.data import generate_building, process_building
+from building_gan_torch.models.grid_layers import GridHourglass
+from building_gan_torch.models.grid_models import GridVoxelGNNGenerator
+from building_gan_torch.ops import hourglass as hg
+from building_gan_torch.serving import InferenceServer
+
+ROUNDING_FACTOR, ROUNDING_ATOL = 4.0, 1e-4
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel runs only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+def test_kernel_matches_plain_at_full_width(K, cuda_device):
+    gen = torch.Generator().manual_seed(K)
+    B, F, Y, X = 4, 11, 12, 12
+    torch.manual_seed(K)
+    Ws, atts, vecs = (a.to(cuda_device) for a in hg.pack_gat_weights(GridHourglass(128, 7)))
+    chans = hg.hourglass_channel_pairs(128, 7)
+    mask = (torch.rand(B, F, Y, X, generator=gen) < 0.6).float()
+    ix = torch.arange(X).expand(B, F, Y, X)
+    iy = torch.arange(Y)[:, None].expand(B, F, Y, X)
+    gid = ((ix >= X // 2).long() + 2 * (iy >= Y // 2).long()) if K > 1 else None
+    args = (
+        torch.randn(B, F, Y, X, 128, generator=gen).to(cuda_device), mask.to(cuda_device),
+        Ws, atts, vecs, chans, None if gid is None else gid.to(cuda_device), K,
+    )
+    want = hg.hourglass_plain(*args)
+    want64 = hg.hourglass_plain(
+        *(a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args)
+    )
+    before = hg.launches.value
+    got = hg.hourglass_fwd(*args)
+    torch.cuda.synchronize()
+    assert hg.launches.value == before + 1
+    assert torch.isfinite(got).all()
+    err_kernel = (got.double() - want64).abs().max().item()
+    err_plain = (want.double() - want64).abs().max().item()
+    assert err_kernel <= ROUNDING_FACTOR * err_plain + ROUNDING_ATOL, (err_kernel, err_plain)
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_what_it_does_not_take(cuda_device):
+    Ws, atts, vecs = (a.to(cuda_device) for a in hg.pack_gat_weights(GridHourglass(16, 2)))
+    chans = hg.hourglass_channel_pairs(16, 2)
+    x = torch.zeros(2, 3, 4, 5, 16, device=cuda_device)
+    mask = torch.ones(2, 3, 4, 5, device=cuda_device)
+    with pytest.raises(TypeError):
+        hg.hourglass_fwd(x.double(), mask, Ws, atts, vecs, chans)
+    with pytest.raises(ValueError):
+        hg.hourglass_fwd(x, mask, Ws, atts, vecs, chans, num_graphs=2)  # no gid plane
+    with pytest.raises(ValueError):
+        hg.hourglass_fwd(x.transpose(1, 2), mask, Ws, atts, vecs, chans)
+
+
+@pytest.mark.cuda
+def test_served_path_launches_the_kernel(cuda_device):
+    cfg = Configuration(
+        GRID_SHAPE=(10, 8, 8), GENERATOR_HIDDEN_DIM=32, GENERATOR_ENCODER_REPEAT=3,
+        LOCAL_ENCODER_HIDDEN_DIM=32, Z_DIM=16,
+    )
+    samples = [process_building(*generate_building(1000 + i), cfg, str(i)) for i in range(4)]
+    torch.manual_seed(0)
+    srv = InferenceServer(
+        cfg, GridVoxelGNNGenerator(cfg).state_dict(), max_batch=4, max_delay_ms=20.0,
+        device=cuda_device,
+    ).start()
+    try:
+        before = hg.launches.value
+        first = [srv.infer(*s, seed=i, timeout_s=120.0) for i, s in enumerate(samples)]
+        again = srv.infer(*samples[2], seed=2, timeout_s=120.0)
+    finally:
+        srv.stop()
+    assert hg.launches.value >= before + 5
+    np.testing.assert_array_equal(again["types"], first[2]["types"])
+    for r, (_, v) in zip(first, samples):
+        assert r["logits"].shape == (v.x.shape[0], 7) and np.isfinite(r["logits"]).all()

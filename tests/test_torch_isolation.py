@@ -1,0 +1,51 @@
+"""The port and chip_smoke.py import no JAX, flax, msgpack or building_gan_tpu.
+
+The machine with the card has none of them, so one such import anywhere in
+the port, even of a module that is itself numpy-only, fails there at import.
+The walk reads the sources with ``ast``; it imports nothing.
+"""
+
+import ast
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "optax", "building_gan_tpu")
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "building_gan_torch")):
+        out += [os.path.join(dirpath, f) for f in sorted(files) if f.endswith(".py")]
+    return out
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif (
+            isinstance(node, ast.Call)
+            and getattr(node.func, "attr", getattr(node.func, "id", None)) in ("import_module", "__import__")
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+        ):
+            yield str(node.args[0].value)
+
+
+def test_walk_finds_the_port():
+    paths = _sources()
+    assert os.path.exists(paths[0]), "chip_smoke.py is missing"
+    assert any(p.endswith(os.path.join("ops", "hourglass.py")) for p in paths)
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_forbidden_imports(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
