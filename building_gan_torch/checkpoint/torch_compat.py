@@ -1,6 +1,7 @@
-"""Weight carry-over: flax generator params -> the port's ``state_dict``.
+"""Weight carry-over: flax generator and critic params -> the port's ``state_dict``.
 
-Port of ``building_gan_tpu/checkpoint/torch_compat.py::generator_params_to_torch``.
+Port of ``building_gan_tpu/checkpoint/torch_compat.py::generator_params_to_torch``
+and ``discriminator_params_to_torch``.
 The input is the flax parameter tree as a nested dict of numpy arrays (so this
 module needs no JAX); the output keys follow the reference torch layout, which
 is how the port's ``GridVoxelGNNGenerator`` names its submodules:
@@ -17,6 +18,10 @@ is how the port's ``GridVoxelGNNGenerator`` names its submodules:
     encoder.module_{4i+1}.mean_scale         encoder/norm_i/mean_scale
     decoder.{3i}.weight                      dec_i/dense/kernel (T)
     decoder.12.weight                        dec_out/kernel (T)
+
+The critic (``discriminator_params_to_state_dict``): ``mlp_i`` ->
+``mlp_encoder.{2i}``, ``encoder`` as above, ``dec_i`` -> ``decoder.{2i}``,
+``dec_out`` -> ``decoder.6``.
 
 (T): torch Linear stores (out, in), flax Dense (in, out).  GATCONV only.
 """
@@ -49,6 +54,33 @@ def _dense_or_norm(out, path, v, base_prefix, i):
         out[key] = v
 
 
+def _dense(out, base, path, v):
+    """A bare Dense leaf (kernel or bias) at torch ``base``."""
+    out[f"{base}." + ("weight" if path[1] == "kernel" else "bias")] = v.T if path[1] == "kernel" else v
+
+
+def _encoder_leaf(out, path, v, what):
+    """A GridHourglass leaf: conv_i -> module_{4i}, norm_i -> module_{4i+1}."""
+    kind, i = path[1].rsplit("_", 1)
+    i = int(i)
+    if kind == "conv":
+        base = f"encoder.module_{4 * i}"
+        if path[2] == "lin":
+            out[f"{base}.lin.weight"] = v.T
+        elif path[2] in ("att_src", "att_dst"):
+            out[f"{base}.{path[2]}"] = v.T[None]  # torch: (1, heads=1, C)
+        elif path[2] == "bias":
+            out[f"{base}.bias"] = v
+        else:
+            raise KeyError(f"unmapped {what} param {path}")
+    else:
+        out[f"encoder.module_{4 * i + 1}.{path[2]}"] = v
+
+
+def _tensors(out: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+
+
 def generator_params_to_state_dict(params: dict, cfg) -> Dict[str, torch.Tensor]:
     """Flax generator params (nested dict of arrays) -> the port's state_dict."""
     if cfg.GENERATOR_CONV_TYPE != "GATCONV":
@@ -61,20 +93,7 @@ def generator_params_to_state_dict(params: dict, cfg) -> Dict[str, torch.Tensor]
         elif name.startswith("mlp_enc_"):
             _dense_or_norm(out, path, v, "mlp_encoder", int(name.split("_")[-1]))
         elif name == "encoder":
-            kind, i = path[1].rsplit("_", 1)
-            i = int(i)
-            if kind == "conv":
-                base = f"encoder.module_{4 * i}"
-                if path[2] == "lin":
-                    out[f"{base}.lin.weight"] = v.T
-                elif path[2] in ("att_src", "att_dst"):
-                    out[f"{base}.{path[2]}"] = v.T[None]  # torch: (1, heads=1, C)
-                elif path[2] == "bias":
-                    out[f"{base}.bias"] = v
-                else:
-                    raise KeyError(f"unmapped generator param {path}")
-            else:
-                out[f"encoder.module_{4 * i + 1}.{path[2]}"] = v
+            _encoder_leaf(out, path, v, "generator")
         elif name == "dec_out":
             out["decoder.12." + ("weight" if path[1] == "kernel" else "bias")] = (
                 v.T if path[1] == "kernel" else v
@@ -83,4 +102,24 @@ def generator_params_to_state_dict(params: dict, cfg) -> Dict[str, torch.Tensor]
             _dense_or_norm(out, path, v, "decoder", int(name.split("_")[-1]))
         else:
             raise KeyError(f"unmapped generator param {path}")
-    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in out.items()}
+    return _tensors(out)
+
+
+def discriminator_params_to_state_dict(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """Flax critic params (nested dict of arrays) -> the port's critic state_dict."""
+    if cfg.DISCRIMINATOR_CONV_TYPE != "GATCONV":
+        raise NotImplementedError("conversion implemented for GATCONV only")
+    out: Dict[str, np.ndarray] = {}
+    for path, v in _flatten(params).items():
+        name = path[0]
+        if name.startswith("mlp_"):
+            _dense(out, f"mlp_encoder.{2 * int(name.split('_')[-1])}", path, v)
+        elif name == "encoder":
+            _encoder_leaf(out, path, v, "discriminator")
+        elif name == "dec_out":
+            _dense(out, "decoder.6", path, v)
+        elif name.startswith("dec_"):
+            _dense(out, f"decoder.{2 * int(name.split('_')[-1])}", path, v)
+        else:
+            raise KeyError(f"unmapped discriminator param {path}")
+    return _tensors(out)

@@ -10,18 +10,16 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.hourglass import hourglass_channel_pairs, hourglass_fwd, pack_gat_weights
+from ..ops.hourglass import hourglass_fwd, pack_gat_weights
 
 
 def prepare(model, cfg) -> dict:
     """Pack the hourglass weights of a ``GridVoxelGNNGenerator`` for ``infer``."""
     if cfg.GENERATOR_CONV_TYPE != "GATCONV":
         raise NotImplementedError("the fused hourglass supports GATCONV only")
-    Ws, atts, vecs = pack_gat_weights(model.encoder)
-    chans = hourglass_channel_pairs(
-        cfg.GENERATOR_HIDDEN_DIM, cfg.GENERATOR_ENCODER_REPEAT, cfg.HOURGLASS_MIN_CHANNELS
-    )
-    return {"Ws": Ws, "atts": atts, "vecs": vecs, "chans": chans}
+    with torch.no_grad():
+        Ws, atts, vecs = pack_gat_weights(model.encoder)
+    return {"Ws": Ws, "atts": atts, "vecs": vecs, "chans": model.encoder.channel_pairs}
 
 
 @torch.no_grad()

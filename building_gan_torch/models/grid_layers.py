@@ -15,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import stencil
+from ..ops import dropout, stencil
+from ..ops.hourglass import hourglass_channel_pairs
 
 
 def hourglass_channels(hidden_dim: int, repeat: int, min_channels: int = 1) -> list[int]:
@@ -136,20 +137,25 @@ class GridGATConv(nn.Module):
 
 
 class GridHourglass(nn.Module):
-    """Hourglass of GAT conv -> GraphNorm -> ReLU layers (deterministic forward).
+    """Hourglass of GAT conv -> GraphNorm -> ReLU -> dropout layers.
 
     Layer i's conv is ``module_{4i}`` and its norm ``module_{4i+1}``; the
     reference's ReLU and Dropout at ``4i+2``, ``4i+3`` hold no parameters.
-    Dropout comes with the training path, so only the deterministic forward
-    exists here.
+    In training mode (``deterministic=False``) each layer's dropout is the
+    Philox byte-threshold mask of ``ops/dropout.py`` under that layer's key
+    ``keys[i]``, counted over the stack's padded width ``hidden_dim``: the
+    same mask the fused kernels draw from the same keys.
     """
 
     def __init__(self, hidden_dim: int, repeat: int, min_channels: int = 1,
-                 conv_type: str = "GATCONV"):
+                 conv_type: str = "GATCONV", dropout_rate: float = 0.2):
         super().__init__()
         if conv_type != "GATCONV":
             raise NotImplementedError(f"grid hourglass conv {conv_type!r}: only GATCONV is ported")
+        self.hidden_dim = hidden_dim
+        self.dropout_rate = dropout_rate
         self.channels = hourglass_channels(hidden_dim, repeat, min_channels)
+        self.channel_pairs = hourglass_channel_pairs(hidden_dim, repeat, min_channels)
         cin = hidden_dim
         for i, ch in enumerate(self.channels):
             self.add_module(f"module_{4 * i}", GridGATConv(cin, ch))
@@ -160,11 +166,21 @@ class GridHourglass(nn.Module):
         for i in range(len(self.channels)):
             yield getattr(self, f"module_{4 * i}"), getattr(self, f"module_{4 * i + 1}")
 
-    def forward(self, x, mask, grid_shape, gid=None, num_graphs: int = 1):
-        """x (B, R, hidden) on the flattened-row layout -> (B, R, hidden)."""
-        for conv, norm in self.layers():
+    def forward(self, x, mask, grid_shape, gid=None, num_graphs: int = 1,
+                deterministic: bool = True, keys: torch.Tensor | None = None):
+        """x (B, R, hidden) on the flattened-row layout -> (B, R, hidden).
+
+        ``keys`` (L, 2) int64: the per-layer Philox keys, needed when
+        ``deterministic`` is False and the rate is above 0.
+        """
+        drop_on = not deterministic and dropout.drop_levels(self.dropout_rate) > 0
+        if drop_on and keys is None:
+            raise ValueError("training-mode dropout needs per-layer Philox keys")
+        for i, (conv, norm) in enumerate(self.layers()):
             x = conv(x, mask, grid_shape, gid=gid)
             x = torch.relu(norm(x, mask, gid=gid, num_graphs=num_graphs))
+            if drop_on:
+                x = dropout.dropout(x, keys[i], self.dropout_rate, width=self.hidden_dim)
         return x
 
 

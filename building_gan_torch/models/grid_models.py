@@ -1,10 +1,15 @@
-"""Grid-layout generator: the port of ``GridVoxelGNNGenerator``.
+"""Grid-layout generator and critic: the port of ``GridVoxelGNNGenerator``
+and ``GridVoxelGNNDiscriminator``.
 
-Same computation as ``building_gan_tpu/models/grid_models.py`` (the
-deterministic forward, in float32), with submodules named after the
-reference ``state_dict``: ``matched_features_encoder``, ``mlp_encoder``,
-``encoder`` (the GAT hourglass) and ``decoder`` (four MLP blocks, then the
-7-way head at ``decoder.12``).
+Same computation as ``building_gan_tpu/models/grid_models.py`` in float32,
+with submodules named after the reference ``state_dict``.  Generator:
+``matched_features_encoder``, ``mlp_encoder``, ``encoder`` (the GAT
+hourglass) and ``decoder`` (four MLP blocks, then the 7-way head at
+``decoder.12``).  Critic: ``mlp_encoder.{0,2}`` (Linear, ReLU), ``encoder``
+and ``decoder.{0,2,4,6}`` (Linear, ReLU, ..., the score head).
+
+Both run deterministic by default; ``deterministic=False`` with per-layer
+Philox ``keys`` turns the hourglass dropout on (training mode).
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ class GridVoxelGNNGenerator(nn.Module):
         )
         self.encoder = GridHourglass(
             gh, cfg.GENERATOR_ENCODER_REPEAT, cfg.HOURGLASS_MIN_CHANNELS,
-            conv_type=cfg.GENERATOR_CONV_TYPE,
+            conv_type=cfg.GENERATOR_CONV_TYPE, dropout_rate=cfg.ENCODER_DROPOUT_RATE,
         )
         self.decoder = mlp_stack(
             2 * gh + lh + VOXEL_FEATURES + z, [gh, gh // 2, gh // 4, gh // 8]
@@ -72,10 +77,70 @@ class GridVoxelGNNGenerator(nn.Module):
         shape5 = tuple(batch.x.shape[:4]) + (NUM_CLASSES,)
         return logits.reshape(shape5), label_hard.reshape(shape5), label_soft.reshape(shape5)
 
-    def forward(self, batch, z, gumbel_noise=None, generator=None):
-        """``z`` (B, F, Y, X, Z_DIM); Gumbel noise given, or drawn from ``generator``."""
+    def forward(self, batch, z, gumbel_noise=None, generator=None,
+                deterministic: bool = True, keys: torch.Tensor | None = None):
+        """``z`` (B, F, Y, X, Z_DIM); Gumbel noise given, or drawn from ``generator``.
+
+        ``keys`` (L, 2): the hourglass's dropout keys when not ``deterministic``.
+        """
         x, encoded_matched, voxel_x, z, mask, gid = self.encode(batch, z)
         encoded = self.encoder(
-            x, mask, batch.grid_shape, gid=gid, num_graphs=batch.graphs_per_slot
+            x, mask, batch.grid_shape, gid=gid, num_graphs=batch.graphs_per_slot,
+            deterministic=deterministic, keys=keys,
         )
         return self.decode(batch, encoded, x, encoded_matched, voxel_x, z, gumbel_noise, generator)
+
+
+class GridVoxelGNNDiscriminator(nn.Module):
+    """Critic over a ``GridBatch``: (batch, label) -> per-cell scores (B, F, Y, X, 1)."""
+
+    def __init__(self, configuration: Configuration):
+        super().__init__()
+        cfg = configuration
+        if cfg.BATCH_LEVEL_GRAPHNORM or cfg.BATCH_LEVEL_MATCHING:
+            raise NotImplementedError("the batch-level quirk modes are not ported")
+        if not cfg.USE_WGANGP:
+            raise NotImplementedError("only the WGAN critic (USE_WGANGP=True) is ported")
+        self.configuration = cfg
+        d = cfg.DISCRIMINATOR_HIDDEN_DIM
+        self.mlp_encoder = nn.Sequential(
+            nn.Linear(LOCAL_FEATURES + VOXEL_FEATURES + NUM_CLASSES, d), nn.ReLU(),
+            nn.Linear(d, d), nn.ReLU(),
+        )
+        self.encoder = GridHourglass(
+            d, cfg.DISCRIMINATOR_ENCODER_REPEAT, cfg.HOURGLASS_MIN_CHANNELS,
+            conv_type=cfg.DISCRIMINATOR_CONV_TYPE, dropout_rate=cfg.ENCODER_DROPOUT_RATE,
+        )
+        self.decoder = nn.Sequential(
+            nn.Linear(d, d // 2), nn.ReLU(),
+            nn.Linear(d // 2, d // 4), nn.ReLU(),
+            nn.Linear(d // 4, d // 8), nn.ReLU(),
+            nn.Linear(d // 8, 1),
+        )
+
+    def encode(self, batch, label: torch.Tensor):
+        """Everything before the hourglass: -> (x (B, R, d), mask, gid), flat."""
+        B = batch.x.shape[0]
+        voxel_x = batch.x.reshape(B, -1, batch.x.shape[-1]).float()
+        vtype = batch.type.reshape(B, -1)
+        gid = None if batch.gid is None else batch.gid.reshape(B, -1)
+        label = label.reshape(B, -1, label.shape[-1]).float()
+        matched_x = grid_type_matched_pooling(
+            batch.local_x.float(), batch.local_type, batch.local_mask, vtype, NUM_CLASSES,
+            local_gid=batch.local_gid, gid=gid, num_graphs=batch.graphs_per_slot,
+        )
+        x = self.mlp_encoder(torch.cat([matched_x, voxel_x, label], dim=-1))
+        return x, batch.mask.reshape(B, -1), gid
+
+    def decode(self, batch, encoded: torch.Tensor) -> torch.Tensor:
+        """Per-cell WGAN critic scores (the sigmoid of ``USE_WGANGP=False`` is not ported)."""
+        return self.decoder(encoded).float().reshape(tuple(batch.x.shape[:4]) + (1,))
+
+    def forward(self, batch, label, deterministic: bool = True,
+                keys: torch.Tensor | None = None) -> torch.Tensor:
+        x, mask, gid = self.encode(batch, label)
+        encoded = self.encoder(
+            x, mask, batch.grid_shape, gid=gid, num_graphs=batch.graphs_per_slot,
+            deterministic=deterministic, keys=keys,
+        )
+        return self.decode(batch, encoded)

@@ -1,8 +1,10 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/*.cu`` file has a plain C interface (``extern "C"``) and is
-compiled on first use into ``building_gan_torch/_build/lib<name>-<hash>.so``
-(the hash is of the source and the flags, so an edited source rebuilds).  No
+Each ``csrc/*.cu`` file (``hourglass``, ``gat_train``) has a plain C
+interface (``extern "C"``) and is compiled on first use into
+``building_gan_torch/_build/lib<name>-<hash>.so`` (the hash is of the source,
+the shared ``csrc/*.cuh`` headers and the flags, so an edited source
+rebuilds).  ``build_all`` starts one nvcc for each source, all at once.  No
 PyTorch headers and no ninja are involved: a build takes seconds.  The
 directory is listed in ``.gitignore``.
 """
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,10 +45,38 @@ def find_nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """Build path keyed by the source, the shared ``csrc/*.cuh`` headers and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def _kernel_name(mangled: str) -> str:
+    """Readable name of a mangled ``__global__`` function, in a namespace or not."""
+    m = re.match(r"_ZN(\d+)", mangled)  # _ZN <len><namespace> <len><name> E ...
+    if m:
+        pos = m.end() + int(m.group(1))
+        m = re.match(r"\d+", mangled[pos:])
+        if m:
+            return mangled[pos + m.end(): pos + m.end() + int(m.group(0))]
+    m = re.match(r"_Z(\d+)", mangled)
+    return mangled[m.end(): m.end() + int(m.group(1))] if m else mangled
+
+
+def ptxas_usage(log: str) -> list:
+    """["kernel: Used N registers, M bytes smem, ..."] from ``nvcc -Xptxas -v`` output."""
+    out, current = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            current = _kernel_name(m.group(1))
+        elif "registers" in ln and current is not None:
+            out.append(f"{current}: {ln.split(':', 1)[-1].strip()}")
+            current = None
+    return out
 
 
 def build(name: str) -> str:
@@ -65,8 +96,27 @@ def build(name: str) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{log[-4000:]}")
     os.replace(tmp, out)
-    build_log[name] = (seconds, [ln.strip() for ln in log.splitlines() if "registers" in ln])
+    build_log[name] = (seconds, ptxas_usage(log))
     return out
+
+
+def build_all(names=("hourglass", "gat_train")) -> None:
+    """Build several sources in parallel, one nvcc process each; raises on the first failure."""
+    errors = []
+
+    def one(name):
+        try:
+            build(name)
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(n,)) for n in names]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
 
 
 def load(name: str) -> ctypes.CDLL:

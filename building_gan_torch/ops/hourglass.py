@@ -22,6 +22,7 @@ import threading
 from typing import List, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import stencil
 
@@ -64,25 +65,22 @@ def hourglass_channel_pairs(
 
 
 def pack_gat_weights(encoder) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """A ``GridHourglass`` module -> (Ws, atts, vecs), zero-padded, on its device."""
-    layers = list(encoder.layers())
-    cmax = max(max(conv.lin.in_features, conv.lin.out_features) for conv, _ in layers)
-    L = len(layers)
-    dev = next(encoder.parameters()).device
-    Ws = torch.zeros(L, cmax, cmax, device=dev)
-    atts = torch.zeros(L, 2, cmax, device=dev)
-    vecs = torch.zeros(L, 4, cmax, device=dev)
-    with torch.no_grad():
-        for l, (conv, norm) in enumerate(layers):
-            co, ci = conv.lin.weight.shape
-            Ws[l, :ci, :co] = conv.lin.weight.t()
-            atts[l, 0, :co] = conv.att_src.reshape(co)
-            atts[l, 1, :co] = conv.att_dst.reshape(co)
-            vecs[l, 0, :co] = conv.bias
-            vecs[l, 1, :co] = norm.weight
-            vecs[l, 2, :co] = norm.bias
-            vecs[l, 3, :co] = norm.mean_scale
-    return Ws, atts, vecs
+    """A ``GridHourglass`` module -> (Ws, atts, vecs), zero-padded to its width, on its device.
+
+    Built by ``F.pad`` + ``torch.stack`` of the module's own parameters, so
+    autograd carries gradients of the packed arrays back to each layer (the
+    training path); call it under ``torch.no_grad()`` for a plain copy.
+    """
+    cmax = encoder.hidden_dim
+    Ws, atts, vecs = [], [], []
+    for conv, norm in encoder.layers():
+        co, ci = conv.lin.weight.shape
+        Ws.append(F.pad(conv.lin.weight.t(), (0, cmax - co, 0, cmax - ci)))
+        pad = lambda p: F.pad(p.reshape(co), (0, cmax - co))  # noqa: E731
+        atts.append(torch.stack([pad(conv.att_src), pad(conv.att_dst)]))
+        vecs.append(torch.stack([pad(conv.bias), pad(norm.weight), pad(norm.bias),
+                                 pad(norm.mean_scale)]))
+    return torch.stack(Ws), torch.stack(atts), torch.stack(vecs)
 
 
 def hourglass_plain(

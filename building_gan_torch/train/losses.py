@@ -1,0 +1,144 @@
+"""WGAN-GP and auxiliary losses on the grid layout.
+
+Port of ``building_gan_tpu/train/losses.py`` (grid layout):
+
+- critic loss ``mean(D(fake)) - mean(D(real)) + GP`` with means over real
+  cells only;
+- gradient penalty: per-cell ``eps ~ U[0, 1)`` interpolation on the one-hot
+  label simplex, the gradient of the summed critic output with respect to
+  the interpolated labels (``torch.autograd.grad(..., create_graph=True)``,
+  so the caller's backward differentiates it a second time),
+  ``mean((||grad||_2 - 1)^2) * lambda_gp``;
+- generator loss ``lambda_adv * (-mean(D(fake))) + lambda_label * CE +
+  lambda_ratio * MSE(ratio[:-2]) + lambda_ratio_void * MSE(ratio[-2:]) +
+  lambda_far * MSE(FAR_gen, FAR)``, ratios over the merged batch, the
+  ``[-2:]`` split (quirk Q4) and the FAR term detached (quirk Q3).
+
+The BCE losses of ``USE_WGANGP=False`` are not ported: these raise on it.
+
+Noise (the GP's eps) is passed in, or drawn from an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from ..config import NUM_CLASSES, VOID, Configuration
+
+
+def _require_wgangp(cfg: Configuration) -> None:
+    if not cfg.USE_WGANGP:
+        raise NotImplementedError("the BCE losses of USE_WGANGP=False are not ported")
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean over entries where mask > 0, in float32; a trailing feature axis beyond mask is summed."""
+    values = values.float()
+    if values.dim() == mask.dim() + 1:
+        values = values.sum(-1)
+    values = torch.where(mask > 0, values, torch.zeros_like(values))
+    return values.sum() / mask.sum().clamp(min=1.0)
+
+
+def gradient_penalty(
+    d_apply: Callable[[torch.Tensor], torch.Tensor],
+    types_onehot: torch.Tensor,  # (..., 7) real labels
+    label_soft: torch.Tensor,  # (..., 7) generated soft labels
+    voxel_mask: torch.Tensor,  # (...)
+    lambda_gp: float,
+    eps: torch.Tensor | None = None,  # (..., 1) in [0, 1)
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """WGAN-GP on the label simplex; ``eps`` given, or drawn from ``generator``."""
+    if eps is None:
+        eps = torch.rand(tuple(voxel_mask.shape) + (1,), generator=generator,
+                         device=voxel_mask.device, dtype=types_onehot.dtype)
+    interpolated = eps * types_onehot + (1.0 - eps) * label_soft
+    if not interpolated.requires_grad:
+        interpolated.requires_grad_(True)
+    scores = d_apply(interpolated)  # (..., 1) per-cell critic scores
+    total = (scores[..., 0] * voxel_mask).sum()
+    (grads,) = torch.autograd.grad(total, interpolated, create_graph=True)
+    norms = torch.sqrt((grads * grads).sum(-1) + 1e-12)
+    return masked_mean((norms - 1.0) ** 2, voxel_mask) * lambda_gp
+
+
+def discriminator_loss(
+    d_apply: Callable[[torch.Tensor], torch.Tensor],
+    types_onehot: torch.Tensor,
+    label_hard: torch.Tensor,
+    label_soft: torch.Tensor,
+    voxel_mask: torch.Tensor,
+    cfg: Configuration,
+    eps: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+    d_apply_gp: Callable[[torch.Tensor], torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """Critic loss.  ``d_apply_gp`` (default ``d_apply``) is the critic inside the
+    penalty, which is differentiated twice: the fused critic is first-order, so
+    the train step passes the plain critic there."""
+    _require_wgangp(cfg)
+    loss = masked_mean(d_apply(label_hard), voxel_mask) - masked_mean(d_apply(types_onehot), voxel_mask)
+    return loss + gradient_penalty(
+        d_apply_gp or d_apply, types_onehot, label_soft, voxel_mask, cfg.LAMBDA_GP,
+        eps=eps, generator=generator,
+    )
+
+
+def generator_loss(
+    d_apply: Callable[[torch.Tensor], torch.Tensor],
+    batch,
+    logits: torch.Tensor,
+    label_hard: torch.Tensor,
+    cfg: Configuration,
+) -> tuple[torch.Tensor, dict]:
+    """Generator loss and its terms (``g_loss_adv``, ``_label``, ``_ratio``, ``_ratio_void``, ``_far``)."""
+    _require_wgangp(cfg)
+    voxel_mask = batch.mask
+    types_onehot = F.one_hot(batch.type.long(), NUM_CLASSES).to(logits.dtype) * voxel_mask[..., None]
+
+    g_loss_adv = -masked_mean(d_apply(label_hard), voxel_mask) * cfg.LAMBDA_ADV
+
+    ce = -(types_onehot * torch.log_softmax(logits, dim=-1)).sum(-1)
+    g_loss_label = masked_mean(ce, voxel_mask) * cfg.LAMBDA_LABEL
+
+    n_real = voxel_mask.sum().clamp(min=1.0)
+    sum_dims = tuple(range(label_hard.dim() - 1))
+    ratio_gen = (label_hard * voxel_mask[..., None]).sum(sum_dims) / n_real
+    ratio_true = types_onehot.sum(sum_dims) / n_real
+    g_loss_ratio = ((ratio_gen[:-2] - ratio_true[:-2]) ** 2).mean() * cfg.LAMBDA_RATIO
+    g_loss_ratio_void = ((ratio_gen[-2:] - ratio_true[-2:]) ** 2).mean() * cfg.LAMBDA_RATIO_VOID
+
+    far_err = (generated_far(batch, label_hard) - batch.far) ** 2
+    g_mask = batch.graph_mask
+    g_loss_far = (far_err * g_mask).sum() / g_mask.sum().clamp(min=1.0)
+    g_loss_far = g_loss_far.detach() * cfg.LAMBDA_FAR
+
+    g_loss = g_loss_adv + g_loss_ratio + g_loss_label + g_loss_ratio_void + g_loss_far
+    aux = {
+        "g_loss_adv": g_loss_adv,
+        "g_loss_label": g_loss_label,
+        "g_loss_ratio": g_loss_ratio,
+        "g_loss_ratio_void": g_loss_ratio_void,
+        "g_loss_far": g_loss_far,
+    }
+    return g_loss, aux
+
+
+def generated_far(batch, label_hard: torch.Tensor) -> torch.Tensor:
+    """Per-graph floor-area ratio of the generated labels: (B,) or (B, K).
+
+    GFA = sum of (dim_y * dim_x) over generated non-void cells; FAR = GFA / site_area.
+    """
+    gen_type = label_hard.argmax(-1)
+    nonvoid = (gen_type != VOID).to(label_hard.dtype) * batch.mask
+    area = batch.dimension[..., 1] * batch.dimension[..., 2]
+    if batch.gid is not None and batch.graphs_per_slot > 1:
+        oh = F.one_hot(batch.gid.long(), batch.graphs_per_slot).to(label_hard.dtype)
+        gfa = torch.einsum("bfyxk,bfyx->bk", oh, area * nonvoid)
+    else:
+        gfa = (area * nonvoid).sum((1, 2, 3))
+    return gfa / batch.site_area.clamp(min=1e-6)

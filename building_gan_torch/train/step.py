@@ -1,0 +1,108 @@
+"""The WGAN-GP train step, on one device.
+
+Port of ``building_gan_tpu/train/step.py`` with ``USE_PALLAS_TRAIN`` (no
+``axis_name``): N_CRITIC critic updates, then one generator update, then the
+confusion-matrix metrics.  The generator and the real / fake critic passes
+run with the hourglass fused (``models/fast_train.py``: the CUDA kernels on a
+CUDA batch); the gradient-penalty critic pass runs the plain
+``GridVoxelGNNDiscriminator``, because the penalty is differentiated twice.
+It gets the same Philox dropout keys as that iteration's fused passes.
+
+Every random draw (z, the Gumbel noise, the GP's eps, the per-layer dropout
+keys) comes from the ``torch.Generator`` given to the step, on the batch's
+device.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from ..config import NUM_CLASSES, Configuration
+from ..models import fast_train as FT
+from ..ops.dropout import draw_keys
+from ..ops.gat_train import build_planes
+from ..ops.rng import normal_box_muller
+from . import losses as L
+from . import metrics as M
+from .state import TrainState
+
+METRIC_KEYS = ("f1", "f1_min", "precision", "recall", "accuracy", "per_graph_f1_hist",
+               "confusion_matrix")
+
+
+def make_train_step(cfg: Configuration, state: TrainState) -> Callable:
+    """Build ``train_step(batch, generator) -> metrics`` over ``state``.
+
+    PyTorch idiom, unlike the pure JAX step: ``train_step`` updates
+    ``state.generator``, ``state.discriminator``, ``state.opt_g`` and
+    ``state.opt_d`` in place and counts ``state.step``; it returns only the
+    metrics, as detached tensors on the batch's device.  The batch must be on
+    the modules' device (``create_train_state`` puts them on the card unless
+    asked for the CPU); another raises.
+    """
+    gen, disc = state.generator, state.discriminator
+    model_device = next(gen.parameters()).device
+    n_gen_layers = len(gen.encoder.channels)
+    n_disc_layers = len(disc.encoder.channels)
+
+    def generator_forward(batch, planes, generator):
+        z = normal_box_muller(tuple(batch.mask.shape) + (cfg.Z_DIM,), generator)
+        return FT.generator_apply_fused(
+            gen, cfg, batch, z, generator=generator, keys=draw_keys(n_gen_layers, generator),
+            planes=planes,
+        )
+
+    def critic_fused(batch, planes, keys):
+        return lambda label: FT.discriminator_apply_fused(disc, cfg, batch, label, keys, planes=planes)
+
+    def critic_update(batch, planes, types_onehot, generator):
+        with torch.no_grad():  # the generator's stop-gradient: nothing is saved
+            _, label_hard, label_soft = generator_forward(batch, planes, generator)
+        keys = draw_keys(n_disc_layers, generator)
+        eps = torch.rand(tuple(batch.mask.shape) + (1,), generator=generator,
+                         device=batch.mask.device)
+        state.opt_d.zero_grad(set_to_none=True)
+        d_loss = L.discriminator_loss(
+            critic_fused(batch, planes, keys), types_onehot, label_hard, label_soft,
+            batch.mask, cfg, eps=eps,
+            d_apply_gp=lambda label: disc(batch, label, deterministic=False, keys=keys),
+        )
+        d_loss.backward()
+        state.opt_d.step()
+        return d_loss.detach()
+
+    def train_step(batch, generator: torch.Generator) -> dict:
+        mask = batch.mask
+        if mask.device != model_device:
+            raise ValueError(f"the batch is on {mask.device}, the modules on {model_device}: "
+                             "move the batch (batch.to(device)) first")
+        types_onehot = F.one_hot(batch.type.long(), NUM_CLASSES).float() * mask[..., None]
+        planes = build_planes(mask, batch.gid, batch.grid_shape)
+
+        d_loss_sum = torch.zeros((), device=mask.device)
+        for _ in range(cfg.N_CRITIC):
+            d_loss_sum = d_loss_sum + critic_update(batch, planes, types_onehot, generator)
+
+        state.opt_g.zero_grad(set_to_none=True)
+        logits, label_hard, _ = generator_forward(batch, planes, generator)
+        keys_d = draw_keys(n_disc_layers, generator)
+        g_loss, aux = L.generator_loss(critic_fused(batch, planes, keys_d), batch, logits,
+                                       label_hard, cfg)
+        g_loss.backward(inputs=list(gen.parameters()))
+        state.opt_g.step()
+        state.step += 1
+
+        y_pred = label_hard.detach().argmax(-1)
+        m = M.compute_metrics(batch.type, y_pred, mask, batch.graph_mask, gid=batch.gid,
+                              num_graphs_per_slot=batch.graphs_per_slot)
+        return {
+            "g_loss": g_loss.detach(),
+            "d_loss": d_loss_sum / max(cfg.N_CRITIC, 1),
+            **{k: v.detach() for k, v in aux.items()},
+            **{k: m[k] for k in METRIC_KEYS},
+        }
+
+    return train_step

@@ -5,7 +5,9 @@
 
 Phases, one short output line or a few each:
   1. the card (nvidia-smi name and power limit) and the torch version;
-  2. build csrc/hourglass.cu with nvcc (plain C interface, loaded with ctypes);
+  2. build csrc/hourglass.cu and csrc/gat_train.cu with nvcc, one process
+     each, in parallel (plain C interfaces, loaded with ctypes); build
+     seconds and each kernel's ptxas registers and shared memory;
   3. the hourglass kernel against its plain PyTorch version on the card, at
      the config of record's widths (hidden 128, repeat 7, grid (11,12,12),
      16 slots), one building per slot (K=1) and four (K=4);
@@ -15,11 +17,29 @@ Phases, one short output line or a few each:
      fused logits == the plain generator's, kernel launches counted;
   5. the kernel and its plain version timed with CUDA events at the server's
      shapes, against the card's bound;
-  6. a {"kernels": [...]} line;
-  7. the server stopped, every thread joined, and the result line last.
+  6. the training layer's kernels (csrc/gat_train.cu, forward and backward)
+     against their plain version at full width on packed real-scale
+     buildings (K=6, dropout on, the same Philox keys): the generator stack
+     (Cmax 128, 14 layers) and the critic stack (Cmax 64, 6 layers), output
+     and gx / gW / gatt / gvec, each stack whole and each layer alone, on
+     every slot of the train batch; one layer's keep mask read back bit for
+     bit;
+  7. the training main path: 512 real-scale synthetic buildings packed at
+     K=6 ("cell" mode), random weights from a seed, 3 WGAN-GP train steps
+     (N_CRITIC=5, f32) through train/step.py; losses and metrics finite,
+     150 forward and 80 backward layer launches a step;
+  8. train-step time and nodes/s, and the stacks' forward and backward
+     kernels against their plain versions and their bounds, at the step's
+     shapes and trained weights (the kernel stacks also held against the
+     plain stacks in f64 there);
+  9. a {"kernels": [...]} line;
+  10. the server stopped, every thread joined, and the result line last.
 
-The kernel is held against its plain version run in float64 (tolerance:
-within 4x the plain float32 version's own rounding error, plus 1e-4).
+Every kernel is held against its plain version run in float64, the gradients
+too, by two rules: its max abs error within 4x the plain float32 version's own,
+plus 1e-4; and its norm-relative error within 4x the plain float32 version's
+own, plus 1e-4.  The training kernels are held so as whole stacks and layer by
+layer, at the train step's 105 slots.
 Parity phases run f32 with TF32 off (torch.backends.cuda.matmul.allow_tf32
 and torch.backends.cudnn.allow_tf32 both False).  Any failure is an uncaught
 exception and a non-zero exit.  Without a CUDA device it exits 1 at once.
@@ -43,6 +63,7 @@ H100_F32_FLOPS = 67e12  # f32 without tensor cores (the kernel uses no TF32)
 # magnify f32 rounding to ~1e-2 on a few outputs of order 10, while an indexing
 # or statistics fault moves outputs by their own size.
 ROUNDING_FACTOR, ROUNDING_ATOL = 4.0, 1e-4
+REL_ATOL = 1e-4  # norm-relative error allowed beyond ROUNDING_FACTOR x the plain f32 version's
 LOGITS_ATOL = 1e-3  # fused vs plain generator logits, f32 both
 REQUESTS, CLIENTS, MAX_BATCH = 48, 16, 16
 REQUEST_TIMEOUT_S = 120.0
@@ -85,6 +106,497 @@ def bound_of(B, R, chans, cmax, K):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
+# The training slice: 512 real-scale buildings packed K=6 (as bench.py), 3 steps.
+TRAIN_BUILDINGS, TRAIN_SLOT_GRAPHS, TRAIN_STEPS = 512, 6, 3
+GRAD_NAMES = ("gx", "gW", "gatt", "gvec")
+DROPOUT_RATE = 0.2
+
+
+def f64_rule(got, want, want64):
+    """Hold one kernel output against its plain version run in f64, by two rules.
+
+    Max abs: |kernel - f64| <= ROUNDING_FACTOR * |plain f32 - f64| + ROUNDING_ATOL.
+    Norm-relative: ||kernel - f64|| / ||f64|| <= ROUNDING_FACTOR * (the same of
+    plain f32) + REL_ATOL; a few cells where f32 rounding flips a ReLU barely
+    move it, a missing or wrong term does.  Returns (ok, report, kernel's max
+    abs error against f64).
+    """
+    g64, p64 = got.double(), want.double()
+    err = (got - want).abs().max().item()
+    err_k64 = (g64 - want64).abs().max().item()
+    err_p64 = (p64 - want64).abs().max().item()
+    limit = ROUNDING_FACTOR * err_p64 + ROUNDING_ATOL
+    norm = max(want64.norm().item(), 1e-300)
+    rel_k = (g64 - want64).norm().item() / norm
+    rel_p = (p64 - want64).norm().item() / norm
+    rel_limit = ROUNDING_FACTOR * rel_p + REL_ATOL
+    ok = bool(torch.isfinite(got).all().item()) and err_k64 <= limit and rel_k <= rel_limit
+    report = (f"(max |f64| {want64.abs().max().item():.3e}): vs plain f32 {err:.3e}; vs f64 max abs: "
+              f"kernel {err_k64:.3e}, plain f32 {err_p64:.3e}, limit {limit:.3e}; norm-relative: "
+              f"kernel {rel_k:.2e}, plain f32 {rel_p:.2e}, limit {rel_limit:.2e} "
+              f"{'ok' if ok else 'FAIL'}")
+    return ok, report, err_k64
+
+
+def train_bound(B, R, chans, cmax, backward, dropout):
+    """(bound_ms, bound_by, bytes, ops) of one training stack pass (one launch a layer).
+
+    Summed over the layers.  Bytes the layer function must move, once each:
+    forward, x (ci channels) and the planes (8 floats a row) and the packed
+    weights in, y (cmax) out; backward, x, gy (co), the planes and the weights
+    in, gx (cmax) and the weight grads out.  What the kernels save in the
+    forward for the backward is their design, not the function's, and is not
+    counted.  Operations at the real ci x co widths: 2 ci co a row forward
+    and 4 ci co backward, plus the elementwise work (28 co + 40 a row forward,
+    50 co + 40 backward) and ~100 integer operations an element for the
+    Philox dropout bytes.
+    """
+    rows = B * R
+    nbytes = flops = 0
+    wbytes = 4 * (cmax * cmax + 6 * cmax)
+    for ci, co in chans:
+        rng = 100 * co if dropout else 0
+        if backward:
+            nbytes += 4 * rows * (co + cmax + ci + 8) + 2 * wbytes
+            flops += rows * (4 * ci * co + 50 * co + 40 + rng)
+        else:
+            nbytes += 4 * rows * (ci + cmax + 8) + wbytes
+            flops += rows * (2 * ci * co + 28 * co + 40 + rng)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def train_batch():
+    """(cfg, batch on the CPU): 512 real-scale buildings, plan_packing_slots + pack_grid_multi_from_slots."""
+    from building_gan_torch.config import Configuration
+    from building_gan_torch.data import (
+        generate_building_real_scale, pack_grid_multi_from_slots, plan_packing_slots,
+        process_building,
+    )
+
+    cfg0 = Configuration()
+    samples = [process_building(*generate_building_real_scale(i), cfg0, f"{i:06d}")
+               for i in range(TRAIN_BUILDINGS)]
+    max_local = max(s[0].x.shape[0] for s in samples)
+    cfg = Configuration(
+        COMPUTE_DTYPE="float32", GRID_SHAPE=(11, 12, 12), GRID_SLOT_GRAPHS=TRAIN_SLOT_GRAPHS,
+        GRID_LOCAL_NODES=int(np.ceil(TRAIN_SLOT_GRAPHS * max_local / 64.0)) * 64,
+        GRID_PACK_MODE="cell", ENCODER_DROPOUT_RATE=DROPOUT_RATE,
+    )
+    slots = plan_packing_slots(samples, cfg)
+    return cfg, pack_grid_multi_from_slots(samples, slots, cfg, batch_slots=len(slots))
+
+
+def perturbed_stack(hidden, repeat, gen, dev):
+    """Random hourglass weights (seeded), GraphNorm and biases moved off their inits."""
+    from building_gan_torch.models.grid_layers import GridHourglass
+    from building_gan_torch.ops.hourglass import pack_gat_weights
+
+    with torch.random.fork_rng(devices=[]):  # the module's own init, seeded from gen
+        torch.manual_seed(int(torch.randint(2**31, (1,), generator=gen)))
+        enc = GridHourglass(hidden, repeat)
+    with torch.no_grad():
+        for conv, norm in enc.layers():
+            n = conv.bias.numel()
+            u = lambda lo, hi: lo + (hi - lo) * torch.rand(n, generator=gen)  # noqa: E731
+            conv.bias.copy_(u(-0.3, 0.3))
+            norm.weight.copy_(u(0.5, 1.5))
+            norm.bias.copy_(u(-0.3, 0.3))
+            norm.mean_scale.copy_(u(0.5, 1.5))
+        packed = [t.to(dev).contiguous() for t in pack_gat_weights(enc)]
+    return packed, enc.channel_pairs
+
+
+def with_grads(fn, leaves, gy):
+    """(y, grads of sum(y * gy) w.r.t. leaves), leaves copied as fresh autograd leaves."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+    y = fn(*leaves)
+    return y.detach(), torch.autograd.grad(y, leaves, gy)
+
+
+def stack_fns(planes, keys, grid, K, chans):
+    """(kernel stack, plain stack) as functions of (x, Ws, atts, vecs), dropout on.
+
+    The plain stack keeps one layer's autograd graph alive at a time
+    (torch.utils.checkpoint recomputes each layer in the backward), so it runs
+    in f64 at the step's 105 slots; the dropout masks are keyed, so the
+    recomputation draws the same bits.
+    """
+    from torch.utils.checkpoint import checkpoint
+
+    from building_gan_torch.ops import dropout as drop
+    from building_gan_torch.ops import gat_train as gt
+
+    levels = drop.drop_levels(DROPOUT_RATE)
+
+    def fused(x, Ws, atts, vecs):
+        return gt.hourglass_train(x, planes, Ws, atts, vecs, keys, grid, K, DROPOUT_RATE, False,
+                                  chans=chans)
+
+    def plain(x, Ws, atts, vecs):
+        for l in range(Ws.shape[0]):
+            x = checkpoint(gt.layer_plain, x, planes, Ws[l], atts[l], vecs[l], keys[l], grid, K,
+                           levels, use_reentrant=False)
+        return x
+
+    return fused, plain
+
+
+def kernel_branches(leaves, planes, key, grid, ci, co, K, levels):
+    """The branches one forward kernel took, for ``layer_plain(..., branches=)``.
+
+    A ReLU or LeakyReLU argument within f32 rounding of 0 can fall on the
+    other side in the kernel than in f64; its gradient then differs by a
+    whole term in one cell.  A layer alone has a few such cells in 10^7, so
+    its references take the kernel's branches: ReLU on where the kernel's y
+    is above 0 (a dropped cell has no gradient either way), LeakyReLU slope
+    1 where the kernel's scores sum to >= 0.  Returns (branches, cells where
+    the kernel's ReLU differs from f64's sign, LeakyReLU arguments that do).
+    """
+    from building_gan_torch.ops import gat_train as gt
+    from building_gan_torch.ops.stencil import shift
+
+    x, w, att, vec = leaves
+    meta = (ci, co, K, levels, tuple(grid), 0.2, 1e-5)
+    offs = gt.flat_offsets(grid)
+    with torch.no_grad():
+        y, saved = gt.launch_forward(gt._load(), torch.cuda.current_stream(x.device).cuda_stream,
+                                     x, planes, w, att, vec, key, meta)
+        a_s, a_d = saved[2][0], saved[2][1]
+        leaky = torch.stack([shift(a_s, 1, o) + a_d >= 0 for o in offs] + [a_s + a_d >= 0])
+        relu = y > 0
+        y64 = gt.layer_plain(x.double(), planes, w.double(), att.double(), vec.double(), key, grid,
+                             K, levels)
+        h64 = x.double() @ w.double()
+        s64, d64 = (h64 * att[0].double()).sum(-1), (h64 * att[1].double()).sum(-1)
+        leaky64 = torch.stack([shift(s64, 1, o) + d64 >= 0 for o in offs] + [s64 + d64 >= 0])
+        live = torch.cat([planes[..., :6].movedim(-1, 0), planes[None, ..., 6]]) > 0
+        n_relu = int((relu != (y64 > 0)).sum())
+        n_leaky = int(((leaky != leaky64) & live).sum())
+    return (relu, leaky), n_relu, n_leaky
+
+
+def hold(label, names, got, want, want64):
+    """f64_rule on each named output; prints each, raises on a failure; -> largest max abs err vs f64."""
+    worst = 0.0
+    for what, a, b, c in zip(names, got, want, want64):
+        ok, report, err_k64 = f64_rule(a, b, c)
+        say(f"{label} {what} {report}")
+        if not ok:
+            raise AssertionError(f"gat_train kernel disagrees with its plain version: {label} {what}")
+        worst = max(worst, err_k64)
+    return worst
+
+
+def check_train_kernels(batch, dev):
+    """Training kernels vs plain at full width on every slot of the train batch.
+
+    For the generator stack (Cmax 128, 14 layers) and the critic stack (Cmax
+    64, 6 layers): the whole stack, then each layer on its own input from the
+    kernel stack (one layer does not compound f32 rounding, so both rules are
+    tight there).  Returns (fwd err, bwd err), the kernel's largest max abs
+    errors against f64.
+    """
+    from building_gan_torch.ops import dropout as drop
+    from building_gan_torch.ops import gat_train as gt
+
+    grid, K = batch.grid_shape, batch.graphs_per_slot
+    planes = gt.build_planes(batch.mask, batch.gid, grid)
+    B, R = planes.shape[:2]
+    levels = drop.drop_levels(DROPOUT_RATE)
+    gen = torch.Generator().manual_seed(11)
+    kgen = torch.Generator(device=dev).manual_seed(12)
+    fwd_err = bwd_err = 0.0
+    for name, hidden, repeat in (("generator", 128, 7), ("critic", 64, 3)):
+        (Ws, atts, vecs), chans = perturbed_stack(hidden, repeat, gen, dev)
+        keys = drop.draw_keys(len(chans), kgen)
+        x = torch.randn(B, R, hidden, generator=gen).to(dev)
+        gy = torch.randn(B, R, hidden, generator=gen).to(dev)
+        fused, plain = stack_fns(planes, keys, grid, K, chans)
+        leaves = (x, Ws, atts, vecs)
+        label = f"train kernel {name} stack (Cmax {hidden}, {len(chans)} layers, K={K}, {B} slots)"
+        got = with_grads(fused, leaves, gy)
+        want = with_grads(plain, leaves, gy)
+        want64 = with_grads(plain, [t.double() for t in leaves], gy.double())
+        torch.cuda.synchronize()
+        fwd_err = max(fwd_err, hold(label, ("y",), got[:1], want[:1], want64[:1]))
+        bwd_err = max(bwd_err, hold(label, GRAD_NAMES, got[1], want[1], want64[1]))
+        del got, want, want64
+
+        # each layer alone, on the kernel stack's own activations
+        xs = [x]
+        with torch.no_grad():
+            for l, (ci, co) in enumerate(chans):
+                xs.append(gt.fused_layer(xs[-1], planes, Ws[l], atts[l], vecs[l], keys[l], grid,
+                                         ci, co, K, levels))
+        worst, flips = {}, [0, 0]
+        for l, (ci, co) in enumerate(chans):
+            leaves = (xs[l], Ws[l], atts[l], vecs[l])
+            branches, n_relu, n_leaky = kernel_branches(leaves, planes, keys[l], grid, ci, co, K, levels)
+            flips = [flips[0] + n_relu, flips[1] + n_leaky]
+
+            def one(x_, W_, a_, v_):
+                return gt.fused_layer(x_, planes, W_, a_, v_, keys[l], grid, ci, co, K, levels)
+
+            def one_plain(x_, W_, a_, v_):
+                return gt.layer_plain(x_, planes, W_, a_, v_, keys[l], grid, K, levels,
+                                      branches=branches)
+
+            got = with_grads(one, leaves, gy)
+            want = with_grads(one_plain, leaves, gy)
+            want64 = with_grads(one_plain, [t.double() for t in leaves], gy.double())
+            torch.cuda.synchronize()
+            for what, a, b, c in zip(("y",) + GRAD_NAMES, [got[0], *got[1]],
+                                     [want[0], *want[1]], [want64[0], *want64[1]]):
+                ok, report, err_k64 = f64_rule(a, b, c)
+                if not ok:
+                    say(f"train kernel {name} layer {l} ({ci} -> {co}) {what} {report}")
+                    raise AssertionError(f"gat_train kernel disagrees with its plain version: "
+                                         f"{name} layer {l} {what}")
+                rel = (a.double() - c).norm().item() / max(c.norm().item(), 1e-300)
+                w = worst.get(what, (0.0, 0.0))
+                worst[what] = (max(w[0], err_k64), max(w[1], rel))
+                if what == "y":
+                    fwd_err = max(fwd_err, err_k64)
+                else:
+                    bwd_err = max(bwd_err, err_k64)
+            del got, want, want64, branches
+        say(f"train kernel {name}: each of {len(chans)} layers alone ({B} slots) within both rules, "
+            f"the references taking the kernel's branches (it took the other branch than f64 at "
+            f"{flips[0]} ReLU and {flips[1]} LeakyReLU arguments); worst kernel vs f64 (max abs, "
+            "norm-relative): " + ", ".join(f"{k} {a:.2e} {r:.2e}" for k, (a, r) in worst.items()))
+        del xs
+        torch.cuda.empty_cache()
+
+        if name == "generator":  # one layer's keep mask, read back from its output
+            ci, co = chans[0]
+            args = (x, planes, Ws[0], atts[0], vecs[0])
+            with torch.no_grad():
+                y0 = gt.fused_layer(*args, None, grid, ci, co, K, 0)
+                y1 = gt.fused_layer(*args, keys[0], grid, ci, co, K, levels)
+            live = y0 > 0
+            keep_k = (y1 != 0)[live]
+            keep_p = drop.keep_mask(tuple(y0.shape), keys[0], levels, device=dev)[live]
+            scaled_ok = torch.equal(y1[live & (y1 != 0)], (y0 * drop.keep_scale(levels))[live & (y1 != 0)])
+            n = B * R * hidden
+            bytes_k = gt.dropout_bytes_cuda(n, keys[0]).to(torch.int64)
+            bytes_p = drop.random_bytes(torch.arange(n, device=dev), keys[0])
+            same = torch.equal(keep_k, keep_p) and scaled_ok and torch.equal(bytes_k, bytes_p)
+            say(f"train kernel dropout: layer 0 keep mask {int(keep_k.sum())}/{keep_k.numel()} kept "
+                f"({keep_k.float().mean().item():.4f}, expect {1 - levels / 256:.4f}); kernel == plain "
+                f"bit for bit: {same}; Philox bytes of {n} elements equal: {torch.equal(bytes_k, bytes_p)}")
+            if not same:
+                raise AssertionError("the kernel's dropout mask differs from the plain version's")
+            del y0, y1, keep_k, keep_p, bytes_k, bytes_p
+    return fwd_err, bwd_err
+
+
+def train_phase(cfg, batch, dev):
+    """The training main path: TRAIN_STEPS steps at full width; -> (state, step ms, launches)."""
+    from building_gan_torch.models.grid_models import GridVoxelGNNDiscriminator, GridVoxelGNNGenerator
+    from building_gan_torch.ops import gat_train as gt
+    from building_gan_torch.ops import hourglass as hg
+    from building_gan_torch.train.state import create_train_state
+    from building_gan_torch.train.step import make_train_step
+
+    torch.manual_seed(cfg.SEED)
+    state = create_train_state(cfg, GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg),
+                               device=dev)
+    step = make_train_step(cfg, state)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    Lg, Ld = len(state.generator.encoder.channels), len(state.discriminator.encoder.channels)
+    want = (cfg.N_CRITIC * (Lg + 2 * Ld) + Lg + Ld, cfg.N_CRITIC * 2 * Ld + Ld + Lg)
+    step_ms = []
+    for c in (gt.fwd_launches, gt.bwd_launches, hg.launches):
+        c.reset()
+    for i in range(TRAIN_STEPS):
+        f0, b0 = gt.fwd_launches.value, gt.bwd_launches.value
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        got = (gt.fwd_launches.value - f0, gt.bwd_launches.value - b0)
+        bad = [k for k, v in m.items() if not torch.isfinite(v).all().item()]
+        say(f"train step {i + 1}: {step_ms[-1]:.1f} ms, g_loss {m['g_loss'].item():.5f}, "
+            f"d_loss {m['d_loss'].item():.5f}, f1 {m['f1'].item():.4f}, f1_min {m['f1_min'].item():.4f}, "
+            f"accuracy {m['accuracy'].item():.4f}; layer launches fwd {got[0]} bwd {got[1]} "
+            f"(expect {want[0]} / {want[1]})")
+        if bad:
+            raise AssertionError(f"train step {i + 1}: non-finite {bad}")
+        if got != want:
+            raise AssertionError(f"train step {i + 1}: {got} layer launches, expected {want}")
+    launches = (gt.fwd_launches.value, gt.bwd_launches.value)
+    if min(launches) < 1:
+        raise AssertionError("the train path never launched a gat_train kernel")
+    return state, step_ms, launches
+
+
+def time_train_stacks(state, batch, dev, card):
+    """Forward and backward of the generator and critic stacks at the step's shapes, in turns.
+
+    With the step's trained weights, the kernel stack's output and gradients
+    are also held against the plain stack's, run in f64, by both rules.
+    Returns ({stack: {"fwd"/"bwd": (ms, plain ms, bound ms, bound by)}},
+    (fwd err, bwd err)).
+    """
+    from building_gan_torch.ops import dropout as drop
+    from building_gan_torch.ops import gat_train as gt
+    from building_gan_torch.ops.hourglass import pack_gat_weights
+
+    grid, K = batch.grid_shape, batch.graphs_per_slot
+    planes = gt.build_planes(batch.mask, batch.gid, grid)
+    B, R = planes.shape[:2]
+    levels = drop.drop_levels(DROPOUT_RATE)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    out, fwd_err, bwd_err = {}, 0.0, 0.0
+    for name, enc in (("generator", state.generator.encoder), ("critic", state.discriminator.encoder)):
+        with torch.no_grad():
+            Ws, atts, vecs = (t.contiguous() for t in pack_gat_weights(enc))
+        cmax, chans = enc.hidden_dim, enc.channel_pairs
+        keys = drop.draw_keys(len(chans), gen)
+        x = torch.randn(B, R, cmax, generator=gen, device=dev)
+        gy = torch.randn(B, R, cmax, generator=gen, device=dev)
+        fused, _ = stack_fns(planes, keys, grid, K, chans)
+
+        def plain(x_, W_, a_, v_):  # the whole graph kept, as autograd runs it
+            return gt.hourglass_train_plain(x_, planes, W_, a_, v_, keys, grid, K, levels)
+
+        leaves = [t.clone().requires_grad_(True) for t in (x, Ws, atts, vecs)]
+        with torch.no_grad():
+            for _ in range(2):
+                fused(*leaves)
+                plain(*leaves)
+            torch.cuda.synchronize()
+            pf1 = timed_ms(lambda: plain(*leaves), 2)
+            kf1 = timed_ms(lambda: fused(*leaves), 5)
+            kf2 = timed_ms(lambda: fused(*leaves), 5)
+            pf2 = timed_ms(lambda: plain(*leaves), 2)
+        yk = fused(*leaves)
+        yp = plain(*leaves)
+        back = lambda y: torch.autograd.grad(y, leaves, gy, retain_graph=True)  # noqa: E731
+        gk, gp = back(yk), back(yp)
+        torch.cuda.synchronize()
+        pb1 = timed_ms(lambda: back(yp), 2)
+        kb1 = timed_ms(lambda: back(yk), 5)
+        kb2 = timed_ms(lambda: back(yk), 5)
+        pb2 = timed_ms(lambda: back(yp), 2)
+        got, want = (yk.detach(), gk), (yp.detach(), gp)
+        del yk, yp
+        torch.cuda.empty_cache()
+        want64 = with_grads(stack_fns(planes, keys, grid, K, chans)[1], [t.double() for t in leaves],
+                            gy.double())
+        label = f"train stacks at the step's weights: {name} ({len(chans)} layers, Cmax {cmax}, {B} slots)"
+        fwd_err = max(fwd_err, hold(label, ("y",), got[:1], want[:1], want64[:1]))
+        bwd_err = max(bwd_err, hold(label, GRAD_NAMES, got[1], want[1], want64[1]))
+        del got, want, want64, gk, gp, leaves
+        torch.cuda.empty_cache()
+        fb = train_bound(B, R, chans, cmax, False, True)
+        bb = train_bound(B, R, chans, cmax, True, True)
+        kf, kb = (kf1 + kf2) / 2, (kb1 + kb2) / 2
+        say(f"time: {name} stack ({len(chans)} layers, Cmax {cmax}, {B} slots) forward: kernel "
+            f"{kf1:.3f}/{kf2:.3f} ms, plain {pf1:.3f}/{pf2:.3f} ms, bound {fb[0]:.4f} ms ({fb[1]}), "
+            f"{100 * fb[0] / kf:.2f}% of bound on {card}")
+        say(f"time: {name} stack backward: kernel {kb1:.3f}/{kb2:.3f} ms, plain {pb1:.3f}/{pb2:.3f} ms, "
+            f"bound {bb[0]:.4f} ms ({bb[1]}), {100 * bb[0] / kb:.2f}% of bound; bytes fwd {fb[2]} "
+            f"bwd {bb[2]}, ops fwd {fb[3]} bwd {bb[3]}")
+        out[name] = {"fwd": (kf, (pf1 + pf2) / 2, fb[0], fb[1]),
+                     "bwd": (kb, (pb1 + pb2) / 2, bb[0], bb[1])}
+    return out, (fwd_err, bwd_err)
+
+
+def wall_ms(fn):
+    """(result, ms) of fn on the host clock between two synchronisations."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, (time.perf_counter() - t) * 1e3
+
+
+def train_breakdown(state, cfg, batch, dev):
+    """Where one train step's time goes: its parts run one at a time, as train/step.py runs them.
+
+    Returns {part: ms} for one critic update and for the generator update.
+    """
+    from building_gan_torch.models import fast_train as FT
+    from building_gan_torch.ops import gat_train as gt
+    from building_gan_torch.ops.dropout import draw_keys
+    from building_gan_torch.ops.rng import normal_box_muller
+    from building_gan_torch.train import losses as L
+    from building_gan_torch.train import metrics as M
+
+    gen_m, disc_m = state.generator, state.discriminator
+    g = torch.Generator(device=dev).manual_seed(5)
+    mask = batch.mask
+    planes = gt.build_planes(mask, batch.gid, batch.grid_shape)
+    types_onehot = torch.nn.functional.one_hot(batch.type.long(), 7).float() * mask[..., None]
+    Lg, Ld = len(gen_m.encoder.channels), len(disc_m.encoder.channels)
+    zshape = tuple(mask.shape) + (cfg.Z_DIM,)
+
+    def gen_fwd():
+        z = normal_box_muller(zshape, g)
+        return FT.generator_apply_fused(gen_m, cfg, batch, z, generator=g, keys=draw_keys(Lg, g),
+                                        planes=planes)
+
+    def critic(keys):
+        return lambda lbl: FT.discriminator_apply_fused(disc_m, cfg, batch, lbl, keys, planes=planes)
+
+    parts = {}
+    with torch.no_grad():
+        (_, hard, soft), parts["critic: generator forward (no grad)"] = wall_ms(gen_fwd)
+    keys = draw_keys(Ld, g)
+    eps = torch.rand(tuple(mask.shape) + (1,), generator=g, device=dev)
+    state.opt_d.zero_grad(set_to_none=True)
+    wgan, parts["critic: real + fake fused forward"] = wall_ms(
+        lambda: L.masked_mean(critic(keys)(hard), mask) - L.masked_mean(critic(keys)(types_onehot), mask))
+    _, parts["critic: real + fake backward (kernels)"] = wall_ms(lambda: wgan.backward())
+    gp, parts["critic: GP plain forward + input grad"] = wall_ms(lambda: L.gradient_penalty(
+        lambda lbl: disc_m(batch, lbl, deterministic=False, keys=keys), types_onehot, soft, mask,
+        cfg.LAMBDA_GP, eps=eps))
+    _, parts["critic: GP double backward (plain)"] = wall_ms(lambda: gp.backward())
+    _, parts["critic: Adam step"] = wall_ms(state.opt_d.step)
+
+    state.opt_g.zero_grad(set_to_none=True)
+    (logits, hard, _), parts["G: generator fused forward"] = wall_ms(gen_fwd)
+    keys = draw_keys(Ld, g)
+    (g_loss, _), parts["G: critic fused forward + losses"] = wall_ms(
+        lambda: L.generator_loss(critic(keys), batch, logits, hard, cfg))
+    _, parts["G: backward (critic + generator kernels)"] = wall_ms(
+        lambda: g_loss.backward(inputs=list(gen_m.parameters())))
+    _, parts["G: Adam step"] = wall_ms(state.opt_g.step)
+    _, parts["G: metrics"] = wall_ms(lambda: M.compute_metrics(
+        batch.type, hard.detach().argmax(-1), mask, batch.graph_mask, gid=batch.gid,
+        num_graphs_per_slot=batch.graphs_per_slot))
+    return parts
+
+
+GAT_TRAIN_KERNELS = ("gemm_kernel", "attend_kernel", "stats_kernel", "apply_kernel",
+                     "norm_partials_kernel", "norm_reduce_kernel", "attn_rows_kernel",
+                     "attn_gather_kernel", "wgrad_kernel", "finalize_kernel")
+
+
+def profile_step(step, batch, dev):
+    """Device busy time and top kernels of one train step under torch.profiler.
+
+    Only the trace's device rows (kernels, copies) are summed: a CPU op's
+    device time is that of the kernels it launched, which have rows of their
+    own.  Returns (wall ms, device ms or None, gat_train kernels' ms,
+    [(kernel, ms), ...]); None when the trace shows no device time.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, ms = wall_ms(lambda: step(batch, g))
+    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda kv: -kv[1])
+    busy = sum(v for _, v in rows)
+    ours = sum(v for k, v in rows if any(f"{n}(" in k for n in GAT_TRAIN_KERNELS))
+    return ms, (busy if busy > 0 else None), ours, rows
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU", file=sys.stderr)
@@ -94,8 +606,10 @@ def main() -> int:
     from building_gan_torch.models import fast_infer
     from building_gan_torch.models.grid_models import GridVoxelGNNGenerator
     from building_gan_torch.ops import _build
+    from building_gan_torch.ops import gat_train as gt
     from building_gan_torch.ops import hourglass as hg
     from building_gan_torch.serving import InferenceServer
+    from building_gan_torch.train.step import make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -106,14 +620,20 @@ def main() -> int:
     say(card)  # exactly as nvidia-smi --query-gpu=name,power.limit prints it
     say(f"torch {torch.__version__} cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
 
-    # 2. build
+    # 2. build both sources at once, one nvcc each
     t0 = time.perf_counter()
+    _build.build_all(("hourglass", "gat_train"))
     hg._load()
-    say(f"build: hourglass.cu {time.perf_counter() - t0:.1f} s (nvcc + ctypes)")
-    for line in _build.build_log.get("hourglass", (0, []))[1]:
-        say("ptxas:", line.split(":", 1)[-1].strip()[:110])
+    gt._load()
+    say(f"build: {time.perf_counter() - t0:.1f} s for both (nvcc in parallel + ctypes)")
+    for name in ("hourglass", "gat_train"):
+        seconds, usage = _build.build_log.get(name, (0.0, []))
+        say(f"build: {name}.cu {seconds:.1f} s")
+        for line in usage:
+            say("ptxas:", line[:140])
 
     # 3. kernel vs plain at full width, K=1 (real buildings) and K=4
+    t_phase = time.perf_counter()
     cfg = Configuration(COMPUTE_DTYPE="float32")
     F, Y, X = cfg.GRID_SHAPE
     torch.manual_seed(cfg.SEED)
@@ -142,13 +662,8 @@ def main() -> int:
             *(a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args)
         )
         torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        err_k64 = (got.double() - want64).abs().max().item()
-        err_p64 = (want.double() - want64).abs().max().item()
-        limit = ROUNDING_FACTOR * err_p64 + ROUNDING_ATOL
-        ok = torch.isfinite(got).all().item() and err_k64 <= limit
-        say(f"kernel K={K}: vs plain f32 max_abs {err:.3e}; vs plain f64: kernel {err_k64:.3e}, "
-            f"plain f32 {err_p64:.3e}, limit {limit:.3e} {'ok' if ok else 'FAIL'}")
+        ok, report, err_k64 = f64_rule(got, want, want64)
+        say(f"kernel K={K} {report}")
         if not ok:
             raise AssertionError(f"hourglass kernel disagrees with its plain version at K={K}")
         max_abs_err = max(max_abs_err, err_k64)
@@ -164,7 +679,10 @@ def main() -> int:
     if not (torch.isfinite(fused).all().item() and lerr <= LOGITS_ATOL):
         raise AssertionError("fused generator logits disagree with the plain generator")
 
+    say(f"phase: hourglass checks {time.perf_counter() - t_phase:.1f} s")
+
     # 4. the main path: the server
+    t_phase = time.perf_counter()
     torch.manual_seed(7)
     weights = GridVoxelGNNGenerator(cfg).state_dict()
     server = InferenceServer(cfg, weights, max_batch=MAX_BATCH, max_delay_ms=5.0, device=dev)
@@ -231,7 +749,10 @@ def main() -> int:
     say(f"serve: alone == batched types; logits max diff {alone_diff:.1e}; "
         f"kernel launches {main_launches} (one per batch)")
 
+    say(f"phase: serve {time.perf_counter() - t_phase:.1f} s")
+
     # 5. timing at the server's shapes (K=1), plain and kernel in turns
+    t_phase = time.perf_counter()
     args = (x_hg, mask_k1, packed["Ws"], packed["atts"], packed["vecs"], chans, None, 1)
     with torch.no_grad():
         for _ in range(3):
@@ -268,17 +789,83 @@ def main() -> int:
     say(f"batch of {MAX_BATCH}: pack {t_pack:.2f} ms, to card {t_h2d:.2f}, noise {t_noise:.2f}, "
         f"infer {t_infer:.2f} (hourglass kernel {ms:.2f}), back {t_d2h:.2f}")
 
-    # 6. kernels line
-    say(json.dumps({"kernels": [{
+    say(f"phase: hourglass timing and batch breakdown {time.perf_counter() - t_phase:.1f} s")
+
+    # 6. the training kernels against their plain version at full width
+    t_phase = time.perf_counter()
+    cfg_t, batch_t = train_batch()
+    n_real = int(batch_t.mask.sum().item())
+    fill = 100.0 * n_real / batch_t.mask.numel()
+    say(f"train data: {TRAIN_BUILDINGS} buildings in {batch_t.mask.shape[0]} slots of "
+        f"{cfg_t.GRID_SHAPE} at K={batch_t.graphs_per_slot}, {n_real} real nodes, fill {fill:.1f}% "
+        f"({time.perf_counter() - t_phase:.1f} s on the host)")
+    batch_t = batch_t.to(dev)
+    t_phase = time.perf_counter()
+    fwd_err, bwd_err = check_train_kernels(batch_t, dev)
+    say(f"phase: train kernel checks {time.perf_counter() - t_phase:.1f} s")
+
+    # 7. the training main path
+    t_phase = time.perf_counter()
+    state, step_ms, (fwd_launches, bwd_launches) = train_phase(cfg_t, batch_t, dev)
+    step_s = float(np.mean(step_ms[1:])) / 1e3
+    say(f"train: {TRAIN_STEPS} steps (G {cfg_t.GENERATOR_ENCODER_REPEAT}x{cfg_t.GENERATOR_HIDDEN_DIM}, "
+        f"D {cfg_t.DISCRIMINATOR_ENCODER_REPEAT}x{cfg_t.DISCRIMINATOR_HIDDEN_DIM}, N_CRITIC "
+        f"{cfg_t.N_CRITIC}, f32): step {step_s * 1e3:.1f} ms (mean of steps 2-{TRAIN_STEPS}), "
+        f"{n_real / step_s:.1f} real voxel nodes/s on {card}")
+    say(f"phase: train steps {time.perf_counter() - t_phase:.1f} s; launches fwd {fwd_launches} "
+        f"bwd {bwd_launches}")
+
+    # 8. the stacks timed at the step's shapes
+    t_phase = time.perf_counter()
+    stacks, (fwd_err2, bwd_err2) = time_train_stacks(state, batch_t, dev, card)
+    fwd_err, bwd_err = max(fwd_err, fwd_err2), max(bwd_err, bwd_err2)
+    say(f"phase: train stack timing {time.perf_counter() - t_phase:.1f} s")
+
+    # 8b. where a train step's time goes: host clock around each part, then a trace
+    t_phase = time.perf_counter()
+    parts = train_breakdown(state, cfg_t, batch_t, dev)
+    crit = sum(v for k, v in parts.items() if k.startswith("critic"))
+    gupd = sum(v for k, v in parts.items() if k.startswith("G"))
+    say(f"train step parts (host clock, one critic update and the G update, on {card}):")
+    for k, v in parts.items():
+        say(f"  {k}: {v:.2f} ms")
+    say(f"  sum: {cfg_t.N_CRITIC} x critic update {crit:.2f} + G update {gupd:.2f} = "
+        f"{cfg_t.N_CRITIC * crit + gupd:.2f} ms (measured step {step_s * 1e3:.1f} ms)")
+    prof_ms, busy_ms, ours_ms, top = profile_step(make_train_step(cfg_t, state), batch_t, dev)
+    if busy_ms is None:
+        say("train step trace: the profiler shows no device time; device busy share not measured")
+    else:
+        say(f"train step trace: wall {prof_ms:.1f} ms under the profiler, device busy {busy_ms:.1f} ms "
+            f"({100 * busy_ms / prof_ms:.1f}%), idle {100 * (1 - busy_ms / prof_ms):.1f}%; "
+            f"gat_train kernels {ours_ms:.1f} ms ({100 * ours_ms / busy_ms:.1f}% of busy)")
+        for name, v in top[:15]:
+            say(f"  device {v:8.2f} ms  {name[:110]}")
+    say(f"phase: train breakdown and trace {time.perf_counter() - t_phase:.1f} s")
+
+    # 9. kernels line: the training kernels' times are one generator stack
+    # (14 layer launches) at the step's shapes
+    gen_t = stacks["generator"]
+    kernels = [{
         "name": "hourglass_fwd", "route": "cuda",
         "source": "building_gan_torch/csrc/hourglass.cu",
         "replaces": "building_gan_tpu/ops/pallas/hourglass.py:92",
         "launches": main_launches, "max_abs_err": max_abs_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
-    }]}))
+    }]
+    for kname, line, launches, err, (k_ms, p_ms, b_ms, b_by) in (
+        ("gat_train_fwd", 175, fwd_launches, fwd_err, gen_t["fwd"]),
+        ("gat_train_bwd", 208, bwd_launches, bwd_err, gen_t["bwd"]),
+    ):
+        kernels.append({
+            "name": kname, "route": "cuda", "source": "building_gan_torch/csrc/gat_train.cu",
+            "replaces": f"building_gan_tpu/ops/pallas/gat_train.py:{line}",
+            "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+    say(json.dumps({"kernels": kernels}))
 
-    # 7. result line, last
+    # 10. result line, last
     if server._thread.is_alive() or any(th.is_alive() for th in threads):
         raise AssertionError("a server or client thread is still running")
     say(json.dumps({"ok": True, "device": {

@@ -43,7 +43,8 @@ def test_kernel_matches_plain_at_full_width(K, cuda_device):
     gen = torch.Generator().manual_seed(K)
     B, F, Y, X = 4, 11, 12, 12
     torch.manual_seed(K)
-    Ws, atts, vecs = (a.to(cuda_device) for a in hg.pack_gat_weights(GridHourglass(128, 7)))
+    with torch.no_grad():
+        Ws, atts, vecs = (a.to(cuda_device) for a in hg.pack_gat_weights(GridHourglass(128, 7)))
     chans = hg.hourglass_channel_pairs(128, 7)
     mask = (torch.rand(B, F, Y, X, generator=gen) < 0.6).float()
     ix = torch.arange(X).expand(B, F, Y, X)
@@ -69,7 +70,8 @@ def test_kernel_matches_plain_at_full_width(K, cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
-    Ws, atts, vecs = (a.to(cuda_device) for a in hg.pack_gat_weights(GridHourglass(16, 2)))
+    with torch.no_grad():
+        Ws, atts, vecs = (a.to(cuda_device) for a in hg.pack_gat_weights(GridHourglass(16, 2)))
     chans = hg.hourglass_channel_pairs(16, 2)
     x = torch.zeros(2, 3, 4, 5, 16, device=cuda_device)
     mask = torch.ones(2, 3, 4, 5, device=cuda_device)

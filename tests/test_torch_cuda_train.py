@@ -1,0 +1,194 @@
+"""Card-only tests of the training layer's CUDA kernels and the train step.
+
+Marked ``cuda``; each skips where torch sees no GPU (decided in the fixture,
+at run time).  No JAX import, so they run on a machine that has only the
+port's dependencies:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda_train.py
+
+f32 with TF32 off.  Kernel outputs and gradients are held against the plain
+version run in float64 by two rules: max abs error at most 4x that of the
+plain version run in float32, plus 1e-4 (the narrow GraphNorm layers magnify
+f32 rounding, so no fixed tolerance fits both that and a fault); and the
+norm-relative error ||kernel - f64|| / ||f64|| at most 4x the plain f32
+version's, plus 1e-4, which a few cells where rounding flips a ReLU barely
+move and a missing term fails.  Whole stacks and each layer alone.
+"""
+
+import pytest
+import torch
+
+from building_gan_torch.config import Configuration
+from building_gan_torch.data import generate_building, pack_grid_multi, process_building
+from building_gan_torch.models.grid_models import GridVoxelGNNDiscriminator, GridVoxelGNNGenerator
+from building_gan_torch.ops import dropout as drop
+from building_gan_torch.ops import gat_train as gt
+from building_gan_torch.ops.hourglass import hourglass_channel_pairs
+from building_gan_torch.train.state import create_train_state
+from building_gan_torch.train.step import make_train_step
+
+ROUNDING_FACTOR, ROUNDING_ATOL, REL_ATOL = 4.0, 1e-4, 1e-4
+GRID = (11, 12, 12)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _stack(hidden, repeat, B, K, seed, dev):
+    """Zero-padded random weights at the hourglass's real widths, planes, x and keys."""
+    gen = torch.Generator().manual_seed(seed)
+    chans = hourglass_channel_pairs(hidden, repeat)
+    L, R = len(chans), GRID[0] * GRID[1] * GRID[2]
+    Ws, atts, vecs = torch.zeros(L, hidden, hidden), torch.zeros(L, 2, hidden), torch.zeros(L, 4, hidden)
+    for l, (ci, co) in enumerate(chans):
+        Ws[l, :ci, :co] = torch.randn(ci, co, generator=gen) / ci**0.5
+        atts[l, :, :co] = torch.randn(2, co, generator=gen) * 0.5
+        vecs[l, :, :co] = torch.rand(4, co, generator=gen) + torch.tensor([[-0.5], [0.5], [-0.5], [0.5]])
+    mask = (torch.rand(B, R, generator=gen) < 0.7).float()
+    gid = torch.randint(0, K, (B, R), generator=gen) if K > 1 else None
+    planes = gt.build_planes(mask, gid, GRID)
+    keys = torch.randint(0, 2**32, (L, 2), generator=gen, dtype=torch.int64)
+    x = torch.randn(B, R, hidden, generator=gen)
+    to = lambda a: a.to(dev)  # noqa: E731
+    return to(x), to(planes), to(Ws), to(atts), to(vecs), to(keys), chans
+
+
+def _grads(fn, leaves, gy):
+    leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+    y = fn(*leaves)
+    return [y.detach()] + list(torch.autograd.grad(y, leaves, gy))
+
+
+def _assert_f64_rules(got, want, want64):
+    for name, a, b, c in zip(("y", "gx", "gW", "gatt", "gvec"), got, want, want64):
+        assert torch.isfinite(a).all(), name
+        err_k = (a.double() - c).abs().max().item()
+        err_p = (b.double() - c).abs().max().item()
+        assert err_k <= ROUNDING_FACTOR * err_p + ROUNDING_ATOL, (name, err_k, err_p)
+        rel_k = ((a.double() - c).norm() / c.norm()).item()
+        rel_p = ((b.double() - c).norm() / c.norm()).item()
+        assert rel_k <= ROUNDING_FACTOR * rel_p + REL_ATOL, (name, rel_k, rel_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,repeat,K", [(128, 7, 6), (64, 3, 1)], ids=["generator_k6", "critic_k1"])
+def test_kernels_match_plain_forward_and_backward(hidden, repeat, K, cuda_device):
+    x, planes, Ws, atts, vecs, keys, chans = _stack(hidden, repeat, 4, K, hidden + K, cuda_device)
+    gy = torch.randn_like(x)
+    levels = drop.drop_levels(0.2)
+
+    def fused(*a):
+        return gt.hourglass_train(a[0], planes, *a[1:], keys, GRID, K, 0.2, False, chans=chans)
+
+    def plain(*a):
+        return gt.hourglass_train_plain(a[0], planes, *a[1:], keys, GRID, K, levels)
+
+    f0, b0 = gt.fwd_launches.value, gt.bwd_launches.value
+    got = _grads(fused, (x, Ws, atts, vecs), gy)
+    torch.cuda.synchronize()
+    assert (gt.fwd_launches.value - f0, gt.bwd_launches.value - b0) == (len(chans), len(chans))
+    want = _grads(plain, (x, Ws, atts, vecs), gy)
+    want64 = _grads(plain, [a.double() for a in (x, Ws, atts, vecs)], gy.double())
+    _assert_f64_rules(got, want, want64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,repeat,K", [(128, 7, 6), (64, 3, 1)], ids=["generator_k6", "critic_k1"])
+def test_each_layer_matches_plain_forward_and_backward(hidden, repeat, K, cuda_device):
+    """Each layer alone on the kernel stack's own activations: no compounding, both rules tight."""
+    x, planes, Ws, atts, vecs, keys, chans = _stack(hidden, repeat, 4, K, hidden + K + 1, cuda_device)
+    gy = torch.randn_like(x)
+    levels = drop.drop_levels(0.2)
+    for l, (ci, co) in enumerate(chans):
+        leaves = (x, Ws[l], atts[l], vecs[l])
+        got = _grads(lambda *a: gt.fused_layer(a[0], planes, *a[1:], keys[l], GRID, ci, co, K, levels),
+                     leaves, gy)
+        plain = lambda *a: gt.layer_plain(a[0], planes, *a[1:], keys[l], GRID, K, levels)  # noqa: E731
+        want = _grads(plain, leaves, gy)
+        want64 = _grads(plain, [a.double() for a in leaves], gy.double())
+        _assert_f64_rules(got, want, want64)
+        x = got[0]
+
+
+@pytest.mark.cuda
+def test_param_grads_do_not_depend_on_slot_grouping(cuda_device):
+    """gW of a batch == the sum over its slots run one at a time (f32 rounding apart)."""
+    x, planes, Ws, atts, vecs, keys, chans = _stack(32, 2, 5, 3, 7, cuda_device)
+    gy = torch.randn_like(x)
+    ci, co = chans[0]
+    args = lambda s: (x[s], planes[s], Ws[0], atts[0], vecs[0])  # noqa: E731
+
+    def grads(s):
+        leaves = [a.detach().clone().requires_grad_(True) for a in args(s)]
+        # keys index elements by their flat position, so a slot alone needs its own
+        # offset: with dropout off the layer is the same function on any grouping
+        y = gt.fused_layer(leaves[0], leaves[1], *leaves[2:], None, GRID, ci, co, 3, 0)
+        return torch.autograd.grad(y, [leaves[0], leaves[2], leaves[3], leaves[4]], gy[s])
+
+    whole = grads(slice(None))
+    parts = [grads(slice(b, b + 1)) for b in range(x.shape[0])]
+    torch.cuda.synchronize()
+    gx = torch.cat([p[0] for p in parts])
+    assert torch.allclose(whole[0], gx, rtol=0, atol=0)  # row-local: identical
+    for i, name in ((1, "gW"), (2, "gatt"), (3, "gvec")):
+        total = sum(p[i] for p in parts)
+        scale = whole[i].abs().max().item()
+        assert (whole[i] - total).abs().max().item() <= 1e-5 * scale + 1e-6, name
+    again = grads(slice(None))
+    for a, b in zip(whole, again):
+        assert torch.equal(a, b)  # no atomics: bit-reproducible
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_what_it_does_not_take(cuda_device):
+    x, planes, Ws, atts, vecs, keys, chans = _stack(16, 2, 2, 1, 3, cuda_device)
+    ci, co = chans[0]
+    ok = (x, planes, Ws[0], atts[0], vecs[0], keys[0], GRID, ci, co, 1, 51)
+    gt.fused_layer(*ok)
+    bad = [
+        ((x.double(),) + ok[1:], TypeError),  # dtype
+        ((x[:, :-1],) + ok[1:], ValueError),  # rows != grid
+        ((x.cpu(),) + ok[1:], ValueError),  # device
+        (ok[:2] + (Ws[0].cpu(),) + ok[3:], ValueError),
+        (ok[:3] + (atts[0][:1],) + ok[4:], ValueError),  # shape
+        ((x.transpose(0, 1).contiguous().transpose(0, 1),) + ok[1:], ValueError),  # layout
+        (ok[:5] + (None,) + ok[6:], ValueError),  # dropout without a key
+        (ok[:5] + (keys[0].int(),) + ok[6:], TypeError),
+        (ok[:7] + (ci + 1,) + ok[8:], ValueError),  # width beyond cmax
+        (ok[:9] + (17,) + ok[10:], ValueError),  # K beyond 16
+    ]
+    for args, exc in bad:
+        with pytest.raises(exc):
+            gt.fused_layer(*args)
+
+
+@pytest.mark.cuda
+def test_train_step_launches_both_kernels(cuda_device):
+    cfg = Configuration(
+        COMPUTE_DTYPE="float32", GRID_SHAPE=(10, 8, 8), GENERATOR_HIDDEN_DIM=32,
+        GENERATOR_ENCODER_REPEAT=2, LOCAL_ENCODER_HIDDEN_DIM=32, Z_DIM=16,
+        GENERATOR_MLP_ENCODER_REPEAT=1, LOCAL_GRAPH_ENCODER_REPEAT=1,
+        DISCRIMINATOR_ENCODER_REPEAT=2, DISCRIMINATOR_HIDDEN_DIM=32, N_CRITIC=2,
+        GRID_LOCAL_NODES=128, GRID_SLOT_GRAPHS=3, GRID_PACK_MODE="cell",
+    )
+    samples = [process_building(*generate_building(1000 + i), cfg, str(i)) for i in range(8)]
+    samples = [s for s in samples if int(s[1].location[:, 0].max()) < 10]
+    batch = pack_grid_multi(samples, cfg, batch_slots=6).to(cuda_device)
+    torch.manual_seed(0)
+    state = create_train_state(cfg, GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg))
+    assert next(state.generator.parameters()).is_cuda  # the card is the default
+    step = make_train_step(cfg, state)
+    f0, b0 = gt.fwd_launches.value, gt.bwd_launches.value
+    metrics = step(batch, torch.Generator(device=cuda_device).manual_seed(0))
+    torch.cuda.synchronize()
+    Lg = Ld = 4
+    assert gt.fwd_launches.value - f0 == cfg.N_CRITIC * (Lg + 2 * Ld) + Lg + Ld
+    assert gt.bwd_launches.value - b0 == cfg.N_CRITIC * 2 * Ld + Ld + Lg
+    for k, v in metrics.items():
+        assert torch.isfinite(v).all(), k

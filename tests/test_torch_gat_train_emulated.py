@@ -1,0 +1,126 @@
+"""The training layer's CUDA kernels (csrc/gat_train.cu), run on the CPU under emulation.
+
+The same emulation as tests/test_torch_kernel_emulated.py: the kernel source
+is compiled with the host C++ compiler against a stand-in ``cuda_runtime.h``
+(a ``std::thread`` for each CUDA thread, ``__syncthreads`` a barrier, blocks
+one after another) and driven through the port's own ctypes binding and
+launch code (``ops.gat_train.launch_forward`` / ``launch_backward``).  The
+design uses no atomics (per-block partials reduced in a fixed order), which
+is what lets the emulation run the backward too.
+
+Each layer of a stack is held against ``layer_plain``: the forward output,
+and the backward's gx, gW, gatt and gvec against autograd through it, with
+dropout on, K = 1 and K = 3, multi-tile rows, Cmax 8 and 16.  The Philox
+header's bytes must equal the torch Philox bit for bit.
+
+Tolerance: the forward and each gradient within 1e-4 of the largest
+magnitude of the reference (f32 sums in other orders, and FMA contraction
+by the host compiler, through narrow GraphNorm layers).
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from building_gan_torch.ops import _build
+from building_gan_torch.ops import dropout as drop
+from building_gan_torch.ops import gat_train as gt
+from building_gan_torch.ops.hourglass import hourglass_channel_pairs
+
+from test_torch_kernel_emulated import EMU_HEADER
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+
+TOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def emulated_lib(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler (g++) for the CPU emulation")
+    d = tmp_path_factory.mktemp("cuda_emu_gt")
+    (d / "cuda_runtime.h").write_text(EMU_HEADER)
+    with open(f"{_build.CSRC}/gat_train.cu") as f:
+        src, n = re.subn(r"(\w+)<<<([^,]+), ([^,]+), 0, s>>>\(", r"emu_launch(\2, \3, \1, ", f.read())
+    assert n == 12  # 4 forward, 7 backward, 1 bytes
+    (d / "gat_train_emu.cpp").write_text(src)
+    so = d / "libgat_train_emu.so"
+    subprocess.run(
+        [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-Wno-unknown-pragmas",
+         f"-I{d}", f"-I{_build.CSRC}", "-o", str(so), str(d / "gat_train_emu.cpp")],
+        check=True, capture_output=True, timeout=300,
+    )
+    return gt._bind(ctypes.CDLL(str(so)))
+
+
+def _stack(rng, hidden, repeat):
+    """Zero-padded per-layer weights at the hourglass's real widths."""
+    chans = hourglass_channel_pairs(hidden, repeat)
+    L = len(chans)
+    Ws, atts, vecs = np.zeros((L, hidden, hidden)), np.zeros((L, 2, hidden)), np.zeros((L, 4, hidden))
+    for l, (ci, co) in enumerate(chans):
+        Ws[l, :ci, :co] = rng.normal(size=(ci, co)) / np.sqrt(ci)
+        atts[l, :, :co] = rng.normal(size=(2, co)) * 0.5
+        vecs[l, 0, :co] = rng.uniform(-0.3, 0.3, co)
+        vecs[l, 1, :co] = rng.uniform(0.5, 1.5, co)
+        vecs[l, 2, :co] = rng.uniform(-0.3, 0.3, co)
+        vecs[l, 3, :co] = rng.uniform(0.5, 1.5, co)
+    f = lambda a: torch.from_numpy(a.astype(np.float32))  # noqa: E731
+    return f(Ws), f(atts), f(vecs), chans
+
+
+def _close(got, want, name):
+    scale = want.abs().max().item() + 1e-6
+    err = (got - want).abs().max().item()
+    assert err <= TOL * scale, f"{name}: max abs err {err:.3e} > {TOL} x {scale:.3e}"
+
+
+@pytest.mark.parametrize(
+    "B,F,Y,X,hidden,repeat,K,rate",
+    [(2, 3, 5, 6, 16, 2, 1, 0.2), (2, 4, 5, 7, 16, 1, 3, 0.2), (3, 2, 9, 9, 8, 2, 1, 0.0)],
+    ids=["k1_dropout_two_tiles", "k3_dropout_three_tiles", "k1_no_dropout_odd_grid"],
+)
+def test_emulated_layer_matches_plain(emulated_lib, B, F, Y, X, hidden, repeat, K, rate):
+    rng = np.random.default_rng(hidden + 7 * K)
+    grid = (F, Y, X)
+    R = F * Y * X
+    Ws, atts, vecs, chans = _stack(rng, hidden, repeat)
+    mask = torch.from_numpy((rng.random((B, R)) < 0.7).astype(np.float32))
+    gid = torch.from_numpy(rng.integers(0, K, (B, R))) if K > 1 else None
+    planes = gt.build_planes(mask, gid, grid)
+    keys = torch.from_numpy(rng.integers(0, 2**32, (len(chans), 2), dtype=np.int64))
+    levels = drop.drop_levels(rate)
+    x = torch.from_numpy(rng.normal(size=(B, R, hidden)).astype(np.float32))
+    for l, (ci, co) in enumerate(chans):
+        key = keys[l] if levels else None
+        meta = (ci, co, K, levels, grid, 0.2, 1e-5)
+        xl = x.clone().requires_grad_(True)
+        w, att, vec = (a[l].clone().requires_grad_(True) for a in (Ws, atts, vecs))
+        want = gt.layer_plain(xl, planes, w, att, vec, key, grid, K, levels)
+        got, saved = gt.launch_forward(emulated_lib, None, x, planes, Ws[l], atts[l], vecs[l], key, meta)
+        assert torch.isfinite(got).all()
+        _close(got, want.detach(), f"layer {l} forward")
+        assert (got[..., co:] == 0).all()
+
+        gy = torch.from_numpy(rng.normal(size=(B, R, hidden)).astype(np.float32))
+        want_g = torch.autograd.grad((want * gy).sum(), (xl, w, att, vec))
+        got_g = gt.launch_backward(emulated_lib, None, gy, x, planes, Ws[l], atts[l], vecs[l],
+                                   key, saved, meta)
+        for name, a, b in zip(("gx", "gW", "gatt", "gvec"), got_g, want_g):
+            assert torch.isfinite(a).all(), name
+            _close(a, b, f"layer {l} {name}")
+        x = want.detach()
+
+
+def test_emulated_philox_bytes_equal_torch(emulated_lib):
+    key = torch.tensor([0x243F6A88, 0x85A308D3], dtype=torch.int64)
+    n = 3000
+    out = torch.empty(n, dtype=torch.uint8)
+    assert emulated_lib.gt_dropout_bytes(out.data_ptr(), n, key.data_ptr(), None) == 0
+    want = drop.random_bytes(torch.arange(n), key)
+    assert torch.equal(out.to(torch.int64), want)

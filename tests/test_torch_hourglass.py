@@ -68,7 +68,7 @@ def test_pack_gat_weights_matches_jax(synthetic_samples, small_cfg):
     want = jhg.pack_gat_weights(params, HIDDEN, REPEAT)
     got = hg.pack_gat_weights(_port_encoder(params, cfg))
     for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(g.detach().numpy(), np.asarray(w))
 
 
 def test_plain_matches_pallas_interpret_k1(synthetic_samples, small_cfg, highest_precision):
@@ -92,7 +92,8 @@ def test_plain_and_module_match_flax_stack(multi, synthetic_samples, small_cfg, 
         hgj.apply({"params": params}, jnp.array(feats), jnp.array(gb.mask), True, jgid, K)
     )
     enc = _port_encoder(params, cfg)
-    Ws, atts, vecs = hg.pack_gat_weights(enc)
+    with torch.no_grad():
+        Ws, atts, vecs = hg.pack_gat_weights(enc)
     gid = None if gb.gid is None else t(gb.gid)
     got = hg.hourglass_plain(
         t(feats), t(gb.mask), Ws, atts, vecs, hg.hourglass_channel_pairs(HIDDEN, REPEAT), gid, K

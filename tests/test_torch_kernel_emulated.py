@@ -128,7 +128,7 @@ def test_emulated_kernel_matches_plain(emulated_lib, B, F, Y, X, hidden, repeat,
             norm.weight.uniform_(0.5, 1.5)
             norm.bias.uniform_(-0.3, 0.3)
             norm.mean_scale.uniform_(0.5, 1.5)
-    Ws, atts, vecs = hg.pack_gat_weights(enc)
+        Ws, atts, vecs = hg.pack_gat_weights(enc)
     chans = hg.hourglass_channel_pairs(hidden, repeat)
     mask = torch.from_numpy((rng.random((B, F, Y, X)) < 0.7).astype(np.float32))
     gid = torch.from_numpy(rng.integers(0, K, (B, F, Y, X))) if K > 1 else None
