@@ -201,6 +201,14 @@ class Configuration:
     def param_dtype(self) -> torch.dtype:
         return _TORCH_DTYPES[self.PARAM_DTYPE]
 
+    def require_float32(self, where: str) -> None:
+        """Raise unless COMPUTE_DTYPE is "float32": the port computes in f32 only so far."""
+        if self.COMPUTE_DTYPE != "float32":
+            raise ValueError(
+                f"{where}: COMPUTE_DTYPE={self.COMPUTE_DTYPE!r} is not ported yet (bf16 and f16 "
+                'are not); the port computes in float32 only: set COMPUTE_DTYPE="float32"'
+            )
+
     def to_dict(self) -> Dict[str, object]:
         return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
 

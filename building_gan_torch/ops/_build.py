@@ -55,26 +55,37 @@ def _lib_path(name: str) -> str:
 
 
 def _kernel_name(mangled: str) -> str:
-    """Readable name of a mangled ``__global__`` function, in a namespace or not."""
+    """Readable name of a mangled ``__global__`` function, in a namespace or not,
+    with its integer template arguments (``name<4, 2>``)."""
+    name, rest = mangled, ""
     m = re.match(r"_ZN(\d+)", mangled)  # _ZN <len><namespace> <len><name> E ...
     if m:
         pos = m.end() + int(m.group(1))
         m = re.match(r"\d+", mangled[pos:])
         if m:
-            return mangled[pos + m.end(): pos + m.end() + int(m.group(0))]
-    m = re.match(r"_Z(\d+)", mangled)
-    return mangled[m.end(): m.end() + int(m.group(1))] if m else mangled
+            end = pos + m.end() + int(m.group(0))
+            name, rest = mangled[pos + m.end(): end], mangled[end:]
+    else:
+        m = re.match(r"_Z(\d+)", mangled)
+        if m:
+            end = m.end() + int(m.group(1))
+            name, rest = mangled[m.end(): end], mangled[end:]
+    t = re.match(r"I((?:Li-?\d+E)+)E", rest)  # integer template arguments
+    return f"{name}<{', '.join(re.findall(r'Li(-?\d+)E', t.group(1)))}>" if t else name
 
 
 def ptxas_usage(log: str) -> list:
     """["kernel: Used N registers, M bytes smem, ..."] from ``nvcc -Xptxas -v`` output."""
-    out, current = [], None
+    out, current, spill = [], None, ""
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            current = _kernel_name(m.group(1))
+            current, spill = _kernel_name(m.group(1)), ""
+        elif "spill stores" in ln and current is not None:
+            m = re.search(r"(\d+) bytes spill stores", ln)
+            spill = f", {m.group(1)} bytes spilled" if m and m.group(1) != "0" else ""
         elif "registers" in ln and current is not None:
-            out.append(f"{current}: {ln.split(':', 1)[-1].strip()}")
+            out.append(f"{current}: {ln.split(':', 1)[-1].strip()}{spill}")
             current = None
     return out
 

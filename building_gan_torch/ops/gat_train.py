@@ -29,6 +29,7 @@ there is no fallback from the kernel to the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Sequence, Tuple
 
@@ -38,10 +39,8 @@ from . import dropout as drop
 from .hourglass import LaunchCounter, _check
 from .stencil import NEG_INF, _nbr_valid_flat, shift
 
-TILE_ROWS = 64  # rows per block in csrc/gat_train.cu
 MAX_CHANNELS = 128
 MAX_KEYS = 16
-MAX_CHUNKS = 64  # row chunks of the weight-gradient partials
 
 fwd_launches = LaunchCounter()  # layer forwards launched on the card
 bwd_launches = LaunchCounter()  # layer backwards launched on the card
@@ -166,14 +165,14 @@ def _bind(lib):
     dims = [i, i, i, i, i, i, i, i, i]  # levels, B, F, Y, X, cmax, ci, co, K
     lib.gt_forward.argtypes = (
         [p, p, p, p, p, p] + dims + [f, f]  # x, planes, w, att, vec, key; slope, eps
-        + [p] * 9  # y, h, v, scores, alphas, part, cnt, stats, nk
+        + [p] * 10  # y, h, v, scores, alphas, bits, stats, nk, part, cnt
         + [p]  # stream
     )
     lib.gt_backward.argtypes = (
-        [p, p, p, p, p, p] + dims + [f, i]  # ...; slope, chunks
-        + [p] * 7  # h, v, scores, alphas, stats, nk, gy
+        [p, p, p, p, p, p] + dims + [f]  # ...; slope
+        + [p] * 8  # h, v, scores, alphas, bits, stats, nk, gy
         + [p] * 4  # gx, gw, gatt, gvec
-        + [p] * 9  # gz, gu, gh, de, part, coef, pgn, patt, pw
+        + [p] * 7  # gu, de, part, pbias, pgn, patt, pw
         + [p]  # stream
     )
     lib.gt_dropout_bytes.argtypes = [p, ctypes.c_longlong, p, p]
@@ -181,14 +180,25 @@ def _bind(lib):
         fn.restype = ctypes.c_int
     lib.gt_error_string.argtypes = [ctypes.c_int]
     lib.gt_error_string.restype = ctypes.c_char_p
+    lib.gt_failed_step.argtypes = []
+    lib.gt_failed_step.restype = ctypes.c_char_p
+    for fn in (lib.gt_row_chunks, lib.gt_lane_width):
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_int
     return lib
 
 
-def _load():
-    """Build (first use) and load the kernel library; returns it bound."""
-    from . import _build
+_lib = None
 
-    return _bind(_build.load("gat_train"))
+
+def _load():
+    """Build (first use) and load the kernel library; returns it bound, once per process."""
+    global _lib
+    if _lib is None:
+        from . import _build
+
+        _lib = _bind(_build.load("gat_train"))
+    return _lib
 
 
 def _ptr(t):
@@ -197,56 +207,94 @@ def _ptr(t):
 
 def _raise_on(lib, rc: int, what: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"gat_train {what} launch failed: {lib.gt_error_string(rc).decode()}")
+        raise RuntimeError(f"gat_train {what} launch failed: {lib.gt_error_string(rc).decode()} "
+                           f"(at {lib.gt_failed_step().decode()})")
 
 
-def _chunks_for(rows: int) -> int:
-    """Row chunks of the weight-gradient partials (each chunk's partial is summed in order)."""
-    return max(1, min(MAX_CHUNKS, math.ceil(rows / TILE_ROWS)))
+@functools.lru_cache(maxsize=512)
+def _layout(shapes):
+    """(offsets, total) in f32 units of the given shapes in one buffer, each 256-byte aligned."""
+    offsets, total = [], 0
+    for sh in shapes:
+        offsets.append(total)
+        total += -(-math.prod(sh) // 64) * 64
+    return tuple(offsets), total
+
+
+def _saved_shapes(lib, B, R, co, K):
+    """f32-unit shapes of what the forward saves: h, v, scores, alphas, bits (a word
+    for each of a lane's channels, ``gt_lane_width``), stats (f64), nk."""
+    return ((B, R, co), (B, R, co), (2, B, R), (B, R, 8), (B, R, lib.gt_lane_width(co)),
+            (B, K, 3, 2 * co), (B, K))
+
+
+def saved_views(lib, saved, x_shape, meta) -> dict:
+    """The tensors inside the buffer a forward saved, by name (for checks and diagnostics)."""
+    ci, co, K = meta[:3]
+    B, R, _ = x_shape
+    shapes = _saved_shapes(lib, B, R, co, K)
+    offsets, _ = _layout(shapes)
+    names = ("h", "v", "scores", "alphas", "bits", "stats", "nk")
+    out = {n: saved[o:o + math.prod(sh)].view(sh) for n, o, sh in zip(names, offsets, shapes)}
+    out["bits"] = out["bits"].view(torch.int32)
+    out["stats"] = out["stats"].view(torch.float64)
+    return out
+
+
+def _ptrs(buf, offsets):
+    base = buf.data_ptr()
+    return [base + 4 * o for o in offsets]
 
 
 def launch_forward(lib, stream, x, planes, w, att, vec, key, meta):
-    """Allocate outputs and scratch and call ``gt_forward``: -> (y, saved tensors).
+    """Allocate outputs and scratch and call ``gt_forward``: -> (y, saved).
 
-    Checks nothing: ``_fused_forward`` checks the tensors of a call on the card.
+    ``saved`` is one f32 buffer holding, at the layer's real width co: h and
+    v (B, R, co), the scores (2, B, R), the softmax weights (B, R, 8), one bit
+    an element (keyed, ReLU on, kept) as (B, R, gt_lane_width(co)) int32 words,
+    the statistics (B, K, 3, co) in f64 and the row counts (B, K)
+    (``saved_views`` names them).  Tensors are handed to the kernels as
+    pointers into one allocation: the allocator's and the view calls are host
+    time that a narrow layer's launch would otherwise wait on.  Checks
+    nothing: ``_FusedLayer`` checks the tensors of a call on the card.
     """
     ci, co, K, levels, (F, Y, X), slope, eps = meta
     B, R, cmax = x.shape
-    T = math.ceil(R / TILE_ROWS)
-    new = lambda *s: torch.empty(*s, device=x.device, dtype=torch.float32)  # noqa: E731
-    y, h, v = new(B, R, cmax), new(B, R, cmax), new(B, R, cmax)
-    scores, alphas = new(2, B, R), new(B, R, 8)
-    part, cnt = new(B, T, K, 2, cmax), new(B, T, K)
-    stats, nk = new(B, K, 3, cmax), new(B, K)
+    P = lib.gt_row_chunks(R)
+    y = torch.empty(B, R, cmax, device=x.device, dtype=torch.float32)
+    offsets, total = _layout(_saved_shapes(lib, B, R, co, K))
+    saved = torch.empty(total, device=x.device, dtype=torch.float32)
+    s_off, s_total = _layout(((B, P, K, 2, 2 * co), (B, P, K)))
+    scratch = torch.empty(s_total, device=x.device, dtype=torch.float32)
     rc = lib.gt_forward(
         _ptr(x), _ptr(planes), _ptr(w), _ptr(att), _ptr(vec), _ptr(key),
         levels, B, F, Y, X, cmax, ci, co, K, slope, eps,
-        _ptr(y), _ptr(h), _ptr(v), _ptr(scores), _ptr(alphas), _ptr(part), _ptr(cnt),
-        _ptr(stats), _ptr(nk), stream,
+        _ptr(y), *_ptrs(saved, offsets), *_ptrs(scratch, s_off), stream,
     )
     _raise_on(lib, rc, "forward")
-    return y, (h, v, scores, alphas, stats, nk)
+    return y, saved
 
 
 def launch_backward(lib, stream, gy, x, planes, w, att, vec, key, saved, meta):
     """Allocate gradients and scratch and call ``gt_backward``: -> (gx, gw, gatt, gvec)."""
     ci, co, K, levels, (F, Y, X), slope, _ = meta
-    h, v, scores, alphas, stats, nk = saved
     B, R, cmax = x.shape
-    T = math.ceil(R / TILE_ROWS)
-    P = _chunks_for(B * R)
-    new = lambda *s: torch.empty(*s, device=x.device, dtype=torch.float32)  # noqa: E731
-    gx, gw, gatt, gvec = new(B, R, cmax), new(cmax, cmax), new(2, cmax), new(4, cmax)
-    gz, gu, gh, de = new(B, R, cmax), new(B, R, cmax), new(B, R, cmax), new(B, R, 8)
-    part, coef, pgn = new(B, T, K, 2, cmax), new(B, K, 4, cmax), new(B, 3, cmax)
-    patt, pw = new(B, T, 3, cmax), new(P, cmax, cmax)
+    P = lib.gt_row_chunks(R)
+    offsets, _ = _layout(_saved_shapes(lib, B, R, co, K))
+    gx = torch.empty(B, R, cmax, device=x.device, dtype=torch.float32)
+    grads = torch.empty(6 * cmax + cmax * cmax, device=x.device, dtype=torch.float32)
+    gw = grads[:cmax * cmax].view(cmax, cmax)
+    gatt = grads[cmax * cmax:cmax * cmax + 2 * cmax].view(2, cmax)
+    gvec = grads[cmax * cmax + 2 * cmax:].view(4, cmax)
+    s_off, s_total = _layout(((B, R, co), (B, R, 8), (B, P, K, 2, 2 * co), (B, P, co),
+                              (B, 3, 2 * co), (B, P, 2, co), (B, P, ci, co)))
+    scratch = torch.empty(s_total, device=x.device, dtype=torch.float32)
     rc = lib.gt_backward(
         _ptr(x), _ptr(planes), _ptr(w), _ptr(att), _ptr(vec), _ptr(key),
-        levels, B, F, Y, X, cmax, ci, co, K, slope, P,
-        _ptr(h), _ptr(v), _ptr(scores), _ptr(alphas), _ptr(stats), _ptr(nk), _ptr(gy),
+        levels, B, F, Y, X, cmax, ci, co, K, slope,
+        *_ptrs(saved, offsets), _ptr(gy),
         _ptr(gx), _ptr(gw), _ptr(gatt), _ptr(gvec),
-        _ptr(gz), _ptr(gu), _ptr(gh), _ptr(de), _ptr(part), _ptr(coef), _ptr(pgn),
-        _ptr(patt), _ptr(pw), stream,
+        *_ptrs(scratch, s_off), stream,
     )
     _raise_on(lib, rc, "backward")
     return gx, gw, gatt, gvec
@@ -296,12 +344,12 @@ class _FusedLayer(torch.autograd.Function):
             y, saved = launch_forward(lib, _stream(x.device), x, planes, w, att, vec, key, meta)
         fwd_launches.add()
         ctx.meta = meta
-        ctx.save_for_backward(x, w, att, vec, planes, key, *saved)
+        ctx.save_for_backward(x, w, att, vec, planes, key, saved)
         return y
 
     @staticmethod
     def backward(ctx, gy):
-        x, w, att, vec, planes, key, *saved = ctx.saved_tensors
+        x, w, att, vec, planes, key, saved = ctx.saved_tensors
         gy = gy.contiguous()
         _check(gy, "gy", torch.float32, tuple(x.shape), x.device)
         lib = _load()
@@ -361,7 +409,10 @@ def hourglass_train(
     if x.device.type == "cpu":
         return hourglass_train_plain(x, planes, Ws, atts, vecs, keys, grid_shape, K, levels,
                                      negative_slope, eps)
-    for l, (ci, co) in enumerate(chans):
-        x = fused_layer(x, planes, Ws[l], atts[l], vecs[l], keys[l] if levels > 0 else None,
+    # unbind, not Ws[l]: one autograd node a parameter stack, whose backward
+    # stacks the layers' grads once, in place of a zero-filled copy a layer
+    for l, (w, att, vec) in enumerate(zip(Ws.unbind(0), atts.unbind(0), vecs.unbind(0))):
+        ci, co = chans[l]
+        x = fused_layer(x, planes, w, att, vec, keys[l] if levels > 0 else None,
                         grid_shape, ci, co, K, levels, negative_slope, eps)
     return x

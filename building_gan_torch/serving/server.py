@@ -46,6 +46,7 @@ class InferenceServer:
         device: str | torch.device = "cuda",
     ):
         cfg = configuration
+        cfg.require_float32("InferenceServer")
         if cfg.LAYOUT != "grid":
             raise ValueError("serving uses the grid layout")
         if cfg.BATCH_LEVEL_MATCHING or cfg.BATCH_LEVEL_GRAPHNORM:

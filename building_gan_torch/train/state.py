@@ -42,7 +42,9 @@ def make_optimizers(cfg: Configuration, generator: nn.Module, discriminator: nn.
 def create_train_state(cfg: Configuration, generator: nn.Module, discriminator: nn.Module,
                        device: torch.device | str = "cuda") -> TrainState:
     """Move both modules to ``device`` (the card unless the caller asks for the CPU),
-    then give each its Adam optimizer."""
+    then give each its Adam optimizer.  Raises unless ``cfg.COMPUTE_DTYPE`` is
+    "float32", the only compute dtype the port takes."""
+    cfg.require_float32("create_train_state")
     generator, discriminator = generator.to(device), discriminator.to(device)
     opt_g, opt_d = make_optimizers(cfg, generator, discriminator)
     return TrainState(generator, discriminator, opt_g, opt_d)

@@ -41,8 +41,10 @@ def make_train_step(cfg: Configuration, state: TrainState) -> Callable:
     ``state.opt_d`` in place and counts ``state.step``; it returns only the
     metrics, as detached tensors on the batch's device.  The batch must be on
     the modules' device (``create_train_state`` puts them on the card unless
-    asked for the CPU); another raises.
+    asked for the CPU); another raises.  So does a ``cfg.COMPUTE_DTYPE`` other
+    than "float32".
     """
+    cfg.require_float32("make_train_step")
     gen, disc = state.generator, state.discriminator
     model_device = next(gen.parameters()).device
     n_gen_layers = len(gen.encoder.channels)

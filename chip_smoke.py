@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (building_gan_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --steps N   # only N train steps, timed (to compare trees)
 
 Phases, one short output line or a few each:
   1. the card (nvidia-smi name and power limit) and the torch version;
@@ -27,11 +28,13 @@ Phases, one short output line or a few each:
   7. the training main path: 512 real-scale synthetic buildings packed at
      K=6 ("cell" mode), random weights from a seed, 3 WGAN-GP train steps
      (N_CRITIC=5, f32) through train/step.py; losses and metrics finite,
-     150 forward and 80 backward layer launches a step;
+     150 forward and 80 backward layer launches a step; each step's peak
+     device memory;
   8. train-step time and nodes/s, and the stacks' forward and backward
      kernels against their plain versions and their bounds, at the step's
      shapes and trained weights (the kernel stacks also held against the
-     plain stacks in f64 there);
+     plain stacks in f64 there); each stack's device time by sub-kernel
+     (torch.profiler) and each layer's forward and backward time;
   9. a {"kernels": [...]} line;
   10. the server stopped, every thread joined, and the result line last.
 
@@ -262,7 +265,8 @@ def kernel_branches(leaves, planes, key, grid, ci, co, K, levels):
     with torch.no_grad():
         y, saved = gt.launch_forward(gt._load(), torch.cuda.current_stream(x.device).cuda_stream,
                                      x, planes, w, att, vec, key, meta)
-        a_s, a_d = saved[2][0], saved[2][1]
+        scores = gt.saved_views(gt._load(), saved, x.shape, meta)["scores"]
+        a_s, a_d = scores[0], scores[1]
         leaky = torch.stack([shift(a_s, 1, o) + a_d >= 0 for o in offs] + [a_s + a_d >= 0])
         relu = y > 0
         y64 = gt.layer_plain(x.double(), planes, w.double(), att.double(), vec.double(), key, grid,
@@ -409,19 +413,23 @@ def train_phase(cfg, batch, dev):
     step_ms = []
     for c in (gt.fwd_launches, gt.bwd_launches, hg.launches):
         c.reset()
+    peak = []
     for i in range(TRAIN_STEPS):
         f0, b0 = gt.fwd_launches.value, gt.bwd_launches.value
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         t = time.perf_counter()
         m = step(batch, gen)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
+        peak.append(torch.cuda.max_memory_allocated(dev) / 2**30)
         got = (gt.fwd_launches.value - f0, gt.bwd_launches.value - b0)
         bad = [k for k, v in m.items() if not torch.isfinite(v).all().item()]
         say(f"train step {i + 1}: {step_ms[-1]:.1f} ms, g_loss {m['g_loss'].item():.5f}, "
             f"d_loss {m['d_loss'].item():.5f}, f1 {m['f1'].item():.4f}, f1_min {m['f1_min'].item():.4f}, "
             f"accuracy {m['accuracy'].item():.4f}; layer launches fwd {got[0]} bwd {got[1]} "
-            f"(expect {want[0]} / {want[1]})")
+            f"(expect {want[0]} / {want[1]}); peak device memory {peak[-1]:.3f} GiB "
+            "(torch.cuda.max_memory_allocated)")
         if bad:
             raise AssertionError(f"train step {i + 1}: non-finite {bad}")
         if got != want:
@@ -502,7 +510,86 @@ def time_train_stacks(state, batch, dev, card):
             f"bwd {bb[2]}, ops fwd {fb[3]} bwd {bb[3]}")
         out[name] = {"fwd": (kf, (pf1 + pf2) / 2, fb[0], fb[1]),
                      "bwd": (kb, (pb1 + pb2) / 2, bb[0], bb[1])}
+        with torch.no_grad():
+            stack_profile(name, planes, Ws, atts, vecs, keys, grid, K, chans, x, gy)
+        torch.cuda.empty_cache()
     return out, (fwd_err, bwd_err)
+
+
+def stack_profile(name, planes, Ws, atts, vecs, keys, grid, K, chans, x, gy):
+    """Where one stack's kernel time goes, forward and backward, at the step's shapes.
+
+    Each layer's forward and backward launch (``launch_forward`` /
+    ``launch_backward``, as ``_FusedLayer`` calls them) on the kernel stack's
+    own activations: timed with CUDA events (3 calls each), then run once
+    under torch.profiler for the device time of each sub-kernel.  Prints the
+    stack's device time by sub-kernel (summed over its layers) and each
+    layer's times; returns {kernel: (ms, launches)}.  These launches go around
+    the wrappers and are not counted.
+    """
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from building_gan_torch.ops import dropout as drop
+    from building_gan_torch.ops import gat_train as gt
+
+    lib, stream = gt._load(), torch.cuda.current_stream().cuda_stream
+    levels = drop.drop_levels(DROPOUT_RATE)
+    metas = [(ci, co, K, levels, tuple(grid), 0.2, 1e-5) for ci, co in chans]
+
+    def fwd(l, xl):
+        return gt.launch_forward(lib, stream, xl, planes, Ws[l], atts[l], vecs[l], keys[l], metas[l])
+
+    def bwd(l, xl, saved):
+        return gt.launch_backward(lib, stream, gy, xl, planes, Ws[l], atts[l], vecs[l], keys[l],
+                                  saved, metas[l])
+
+    def short(key):
+        m = re.search(r"::(\w+(?:<[^>]*>)?)\(", key)
+        return m.group(1) if m else key[:60]
+
+    per_layer, total = [], {}
+    with torch.no_grad():
+        xl = x
+        for l, (ci, co) in enumerate(chans):
+            y, saved = fwd(l, xl)
+            bwd(l, xl, saved)
+            f_ms = timed_ms(lambda: fwd(l, xl), 3)
+            b_ms = timed_ms(lambda: bwd(l, xl, saved), 3)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fwd(l, xl)
+                bwd(l, xl, saved)
+                torch.cuda.synchronize()
+            kernels = {}
+            for e in prof.key_averages():
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+                    k = short(e.key)
+                    ms, n = kernels.get(k, (0.0, 0))
+                    kernels[k] = (ms + e.self_device_time_total / 1e3, n + e.count)
+            for k, (ms, n) in kernels.items():
+                tms, tn = total.get(k, (0.0, 0))
+                total[k] = (tms + ms, tn + n)
+            per_layer.append((ci, co, f_ms, b_ms, kernels))
+            del saved
+            xl = y
+        del xl, y
+        torch.cuda.empty_cache()
+    for what, label in (("fwd_", "forward"), ("bwd_", "backward")):
+        rows = sorted(((k, v) for k, v in total.items() if k.startswith(what)), key=lambda kv: -kv[1][0])
+        say(f"sub-kernels: {name} stack {label} ({len(chans)} layers), device ms by kernel "
+            f"(launches), torch.profiler, total {sum(v[0] for _, v in rows):.3f} ms:")
+        for k, (ms, n) in rows:
+            say(f"  {ms:8.3f} ms {n:4d}x  {k}")
+    say(f"layers: {name} stack, ms a layer call, CUDA events (forward / backward), then device ms "
+        "by sub-kernel:")
+    for l, (ci, co, f_ms, b_ms, kernels) in enumerate(per_layer):
+        parts = " ".join(f"{k.split('_')[1]} {ms:.4f}" for k, (ms, _) in kernels.items())
+        say(f"  layer {l:2d} {ci:3d} -> {co:3d}: {f_ms:.4f} / {b_ms:.4f}; {parts}")
+    say(f"  sum: {sum(p[2] for p in per_layer):.3f} / {sum(p[3] for p in per_layer):.3f} ms")
+    return total
 
 
 def wall_ms(fn):
@@ -571,9 +658,8 @@ def train_breakdown(state, cfg, batch, dev):
     return parts
 
 
-GAT_TRAIN_KERNELS = ("gemm_kernel", "attend_kernel", "stats_kernel", "apply_kernel",
-                     "norm_partials_kernel", "norm_reduce_kernel", "attn_rows_kernel",
-                     "attn_gather_kernel", "wgrad_kernel", "finalize_kernel")
+GAT_TRAIN_KERNELS = ("fwd_gemm_kernel", "fwd_attend_kernel", "fwd_apply_kernel", "bwd_norm_kernel",
+                     "bwd_rows_kernel", "bwd_gather_kernel", "bwd_finalize_kernel")
 
 
 def profile_step(step, batch, dev):
@@ -594,7 +680,7 @@ def profile_step(step, batch, dev):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda kv: -kv[1])
     busy = sum(v for _, v in rows)
-    ours = sum(v for k, v in rows if any(f"{n}(" in k for n in GAT_TRAIN_KERNELS))
+    ours = sum(v for k, v in rows if any(f"{n}(" in k or f"{n}<" in k for n in GAT_TRAIN_KERNELS))
     return ms, (busy if busy > 0 else None), ours, rows
 
 def main() -> int:
@@ -875,5 +961,42 @@ def main() -> int:
     return 0
 
 
+def steps_only(n: int) -> int:
+    """``python3 chip_smoke.py --steps N``: only the train step, N + 1 steps (the first
+    is set-up), each host-timed between synchronisations, with its peak device
+    memory.  For comparing two trees in one call, in turns (no checks, no result line).
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from building_gan_torch.models.grid_models import GridVoxelGNNDiscriminator, GridVoxelGNNGenerator
+    from building_gan_torch.train.state import create_train_state
+    from building_gan_torch.train.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg, batch = train_batch()
+    batch = batch.to(dev)
+    torch.manual_seed(cfg.SEED)
+    state = create_train_state(cfg, GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg),
+                               device=dev)
+    step = make_train_step(cfg, state)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ms, peak = [], []
+    for _ in range(n + 1):
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, t = wall_ms(lambda: step(batch, gen))
+        ms.append(t)
+        peak.append(torch.cuda.max_memory_allocated(dev) / 2**30)
+    n_real = int(batch.mask.sum().item())
+    say(f"steps: {' '.join(f'{t:.1f}' for t in ms[1:])} ms; median {float(np.median(ms[1:])):.1f} ms, "
+        f"{n_real / (float(np.median(ms[1:])) / 1e3):.1f} real voxel nodes/s; peak device memory "
+        f"{max(peak[1:]):.3f} GiB on {card_line()}")
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--steps":
+        sys.exit(steps_only(int(sys.argv[2])))
     sys.exit(main())

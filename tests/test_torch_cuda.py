@@ -86,8 +86,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
 @pytest.mark.cuda
 def test_served_path_launches_the_kernel(cuda_device):
     cfg = Configuration(
-        GRID_SHAPE=(10, 8, 8), GENERATOR_HIDDEN_DIM=32, GENERATOR_ENCODER_REPEAT=3,
-        LOCAL_ENCODER_HIDDEN_DIM=32, Z_DIM=16,
+        COMPUTE_DTYPE="float32", GRID_SHAPE=(10, 8, 8), GENERATOR_HIDDEN_DIM=32,
+        GENERATOR_ENCODER_REPEAT=3, LOCAL_ENCODER_HIDDEN_DIM=32, Z_DIM=16,
     )
     samples = [process_building(*generate_building(1000 + i), cfg, str(i)) for i in range(4)]
     torch.manual_seed(0)

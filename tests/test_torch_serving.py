@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from building_gan_torch.config import Configuration
 from building_gan_torch.models.grid_models import GridVoxelGNNGenerator
 from building_gan_torch.serving import InferenceServer
 from building_gan_torch.serving.batcher import PyBatcher
@@ -151,3 +152,21 @@ def test_server_swap_params(serve_cfg, synthetic_samples):
     finally:
         oracle.stop()
     np.testing.assert_array_equal(after["logits"], want["logits"])
+
+
+@pytest.mark.parametrize("dtype,raises", [("bfloat16", True), ("float16", True), ("float32", False)])
+def test_server_takes_only_float32(serve_cfg, dtype, raises):
+    """A config at another COMPUTE_DTYPE (bf16 is the default) is refused, not computed in f32."""
+    cfg = serve_cfg.replace(COMPUTE_DTYPE=dtype)
+    weights = _weights(serve_cfg, 0)
+    if raises:
+        with pytest.raises(ValueError, match="COMPUTE_DTYPE"):
+            InferenceServer(cfg, weights, max_batch=2, device="cpu")
+    else:
+        InferenceServer(cfg, weights, max_batch=2, device="cpu")
+
+
+def test_server_refuses_the_default_config():
+    assert Configuration().COMPUTE_DTYPE == "bfloat16"
+    with pytest.raises(ValueError, match="COMPUTE_DTYPE='bfloat16' is not ported"):
+        InferenceServer(Configuration(), {}, device="cpu")

@@ -23,6 +23,7 @@ import torch
 
 from building_gan_tpu.train import state as JS
 
+from building_gan_torch.config import Configuration
 from building_gan_torch.models.grid_models import GridVoxelGNNDiscriminator, GridVoxelGNNGenerator
 from building_gan_torch.ops import gat_train as gt
 from building_gan_torch.train import state as TS
@@ -118,3 +119,29 @@ def test_train_state_defaults_to_the_card_and_step_refuses_another_device(step_c
         assert {p.device.type for p in m.parameters()} == {"meta"}
     with pytest.raises(ValueError, match="the batch is on cpu, the modules on meta"):
         make_train_step(cfg, state)(batch, torch.Generator().manual_seed(1))
+
+
+@pytest.mark.parametrize("dtype,raises", [("bfloat16", True), ("float16", True), ("float32", False)])
+def test_train_entry_points_take_only_float32(step_case, dtype, raises):
+    """create_train_state and make_train_step refuse a COMPUTE_DTYPE the port does not take."""
+    cfg, _, state = step_case
+    other = cfg.replace(COMPUTE_DTYPE=dtype)
+    modules = (GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg))
+    if raises:
+        with pytest.raises(ValueError, match="COMPUTE_DTYPE"):
+            TS.create_train_state(other, *modules, device="cpu")
+        with pytest.raises(ValueError, match="COMPUTE_DTYPE"):
+            make_train_step(other, state)
+    else:
+        TS.create_train_state(other, *modules, device="cpu")
+        make_train_step(other, state)
+
+
+def test_train_entry_points_refuse_the_default_config(step_case):
+    _, _, state = step_case
+    cfg = Configuration()
+    assert cfg.COMPUTE_DTYPE == "bfloat16"
+    with pytest.raises(ValueError, match="create_train_state: COMPUTE_DTYPE='bfloat16'"):
+        TS.create_train_state(cfg, torch.nn.Linear(1, 1), torch.nn.Linear(1, 1), device="cpu")
+    with pytest.raises(ValueError, match="make_train_step: COMPUTE_DTYPE='bfloat16'"):
+        make_train_step(cfg, state)
