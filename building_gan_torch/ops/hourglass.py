@@ -12,12 +12,16 @@ once into three zero-padded arrays:
 on CUDA tensors it launches ``csrc/hourglass.cu`` or raises.  GraphNorm
 statistics are per (slot, gid key), so unlike the TPU kernel (per slot) it
 also matches the flax stack on multi-building (K>1) batches.
+
+The kernel runs the whole stack in one launch, a thread block cluster a slot
+(``hg_cluster_size`` in the source picks its size from R, Cmax and K).
+``hourglass_cuda`` allocates the output alone: h, v, the scores and the
+statistics live in the cluster's shared memory.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 import threading
 from typing import List, Sequence, Tuple
 
@@ -26,9 +30,10 @@ import torch.nn.functional as F
 
 from . import stencil
 
-TILE_ROWS = 64  # rows per block in csrc/hourglass.cu
 MAX_CHANNELS = 128
 MAX_KEYS = 16
+MAX_LAYERS = 64
+MAX_SLOTS = 65535  # the launch grid's y extent
 
 
 class LaunchCounter:
@@ -128,10 +133,16 @@ def _bind(lib):
         ctypes.POINTER(ctypes.c_int), i,  # chans, L
         i, i, i, i, i,  # B, F, Y, X, cmax
         f, f,  # slope, eps
-        p, p, p, p, p, p,  # out, h, v, scores, part, cnt
+        p, i, p,  # out, cluster (0: the kernel's choice), trace (null)
         p,  # stream
     ]
     lib.hg_forward.restype = ctypes.c_int
+    ints = ctypes.POINTER(ctypes.c_int)
+    lib.hg_cluster_size.argtypes = [i, i, i, i, ints, i]  # B, R, cmax, K, chans, L
+    lib.hg_smem_bytes.argtypes = [i, i, i, ints, i, i]  # R, cmax, K, chans, L, C
+    lib.hg_max_active_clusters.argtypes = [i, i, i, ints, i, i]
+    for name in ("hg_cluster_size", "hg_smem_bytes", "hg_max_active_clusters"):
+        getattr(lib, name).restype = ctypes.c_int
     lib.hg_error_string.argtypes = [ctypes.c_int]
     lib.hg_error_string.restype = ctypes.c_char_p
     return lib
@@ -155,9 +166,30 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def c_chans(chans):
+    """L (ci, co) pairs as the C array the library takes."""
+    return (ctypes.c_int * (2 * len(chans)))(*[c for pair in chans for c in pair])
+
+
+def cluster_size(B: int, R: int, cmax: int, K: int, chans) -> int:
+    """CTAs of the cluster that holds one slot, as the kernel chooses for B slots
+    of R rows on the current device (0: no cluster of at most 16 holds one)."""
+    return _load().hg_cluster_size(B, R, cmax, K, c_chans(chans), len(chans))
+
+
 def hourglass_cuda(x, mask, Ws, atts, vecs, chans, gid=None, num_graphs=1,
-                   negative_slope=0.2, eps=1e-5) -> torch.Tensor:
-    """Launch ``csrc/hourglass.cu`` on the current stream; raises on what it does not take."""
+                   negative_slope=0.2, eps=1e-5, cluster=0) -> torch.Tensor:
+    """Launch ``csrc/hourglass.cu`` on the current stream; raises on what it does not take.
+
+    One launch: a cluster of ``cluster`` CTAs a slot (0: the kernel's choice,
+    ``cluster_size``, from the device's occupancy).  It takes up to 65535
+    slots, widths up to 128, up to 16 keys, and a slot whose rows fit a
+    cluster of at most 16 CTAs: at the config of record's widths (128 -> 1
+    -> 128) and K = 1, up to 4,448 rows (278 a CTA).  A refused
+    configuration or launch raises; there is no fallback.  The result is
+    bit-reproducible, and a slot's does not depend on the other slots, for
+    one cluster size (which depends on B and on the card).
+    """
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"hourglass_cuda needs CUDA tensors, got {dev}")
@@ -167,9 +199,15 @@ def hourglass_cuda(x, mask, Ws, atts, vecs, chans, gid=None, num_graphs=1,
         raise ValueError(f"channel width {cmax} outside [1, {MAX_CHANNELS}]")
     if not 1 <= num_graphs <= MAX_KEYS:
         raise ValueError(f"num_graphs {num_graphs} outside [1, {MAX_KEYS}]")
-    for ci, co in chans:
+    if not 1 <= L <= MAX_LAYERS:
+        raise ValueError(f"{L} layers outside [1, {MAX_LAYERS}]")
+    if not 1 <= B <= MAX_SLOTS:
+        raise ValueError(f"{B} slots outside [1, {MAX_SLOTS}]")
+    for l, (ci, co) in enumerate(chans):
         if not (1 <= ci <= cmax and 1 <= co <= cmax):
             raise ValueError(f"layer widths ({ci}, {co}) outside [1, {cmax}]")
+        if l > 0 and ci != chans[l - 1][1]:
+            raise ValueError(f"layer {l} takes {ci} channels, the previous layer gives {chans[l - 1][1]}")
     if chans[0][0] != cmax or chans[-1][1] != cmax:
         raise ValueError("first input and last output width must equal the padded width")
     _check(x, "x", torch.float32, (B, F, Y, X, cmax), dev)
@@ -185,25 +223,19 @@ def hourglass_cuda(x, mask, Ws, atts, vecs, chans, gid=None, num_graphs=1,
         raise ValueError("num_graphs > 1 needs a gid plane")
 
     R = F * Y * X
-    T = math.ceil(R / TILE_ROWS)
     K = num_graphs
-    out = torch.empty_like(x)
-    h = torch.empty_like(x)
-    v = torch.empty_like(x)
-    scores = torch.empty(2, B, R, device=dev)
-    part = torch.empty(B, T, K, 2, cmax, device=dev)
-    cnt = torch.empty(B, T, K, device=dev)
-    chans_c = (ctypes.c_int * (2 * L))(*[c for pair in chans for c in pair])
-
     lib = _load()
+    chans_c = c_chans(chans)
+    if cluster == 0 and lib.hg_cluster_size(B, R, cmax, K, chans_c, L) == 0:
+        raise ValueError(f"no cluster of at most 16 CTAs holds a slot of {R} rows at width {cmax} "
+                         f"with {K} keys")
+    out = torch.empty_like(x)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.hg_forward(
             x.data_ptr(), mask.data_ptr(), None if gid is None else gid.data_ptr(), K,
             Ws.data_ptr(), atts.data_ptr(), vecs.data_ptr(), chans_c, L,
-            B, F, Y, X, cmax, negative_slope, eps,
-            out.data_ptr(), h.data_ptr(), v.data_ptr(), scores.data_ptr(),
-            part.data_ptr(), cnt.data_ptr(), stream,
+            B, F, Y, X, cmax, negative_slope, eps, out.data_ptr(), cluster, None, stream,
         )
     if rc != 0:
         raise RuntimeError(f"hourglass kernel launch failed: {lib.hg_error_string(rc).decode()}")

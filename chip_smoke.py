@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --steps N   # only N train steps, timed (to compare trees)
+    python3 chip_smoke.py --time-hourglass [DIR]   # only the serving kernel, timed;
+        # DIR: a checkout whose building_gan_torch is timed instead (to compare trees)
 
 Phases, one short output line or a few each:
   1. the card (nvidia-smi name and power limit) and the torch version;
@@ -17,7 +19,12 @@ Phases, one short output line or a few each:
      several threads; outputs checked, served-alone == served-in-a-batch,
      fused logits == the plain generator's, kernel launches counted;
   5. the kernel and its plain version timed with CUDA events at the server's
-     shapes, against the card's bound;
+     shapes, against the card's bound; the kernel's launches a stack call,
+     the cluster size it chooses, CTAs, shared memory, registers and spills
+     (ptxas), and for every cluster size that fits the clusters the card
+     holds at once (cudaOccupancyMaxActiveClusters) and the time, in turns;
+     its device time by layer and by phase (each CTA's %globaltimer at its
+     trace points);
   6. the training layer's kernels (csrc/gat_train.cu, forward and backward)
      against their plain version at full width on packed real-scale
      buildings (K=6, dropout on, the same Philox keys): the generator stack
@@ -48,6 +55,7 @@ and torch.backends.cudnn.allow_tf32 both False).  Any failure is an uncaught
 exception and a non-zero exit.  Without a CUDA device it exits 1 at once.
 """
 
+import gc
 import json
 import subprocess
 import sys
@@ -85,12 +93,20 @@ def card_line() -> str:
 
 
 def timed_ms(fn, iters: int) -> float:
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    """Device ms a call of fn, CUDA events around iters calls.  The garbage collector
+    is run before and kept off during the window (as timeit does): a collection in
+    the window stalls the host, the device idles, and the events count the idle."""
+    gc.collect()
+    gc.disable()
+    try:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        gc.enable()
     return start.elapsed_time(end) / iters
 
 
@@ -683,12 +699,138 @@ def profile_step(step, batch, dev):
     ours = sum(v for k, v in rows if any(f"{n}(" in k or f"{n}<" in k for n in GAT_TRAIN_KERNELS))
     return ms, (busy if busy > 0 else None), ours, rows
 
+
+def serving_inputs(dev):
+    """The serve smoke's inputs: (cfg, ref_model, packed, seeds, samples, batch, zgen, z, x_hg).
+
+    The config of record (f32), its generator with weights from
+    torch.manual_seed(cfg.SEED), REQUESTS real-scale buildings (seeds 1000-),
+    the first MAX_BATCH of them packed, and the hourglass's input for that
+    batch, (MAX_BATCH, F, Y, X, 128).
+    """
+    from building_gan_torch.config import Configuration
+    from building_gan_torch.data import generate_building_real_scale, pack_grid, process_building
+    from building_gan_torch.models import fast_infer
+    from building_gan_torch.models.grid_models import GridVoxelGNNGenerator
+
+    cfg = Configuration(COMPUTE_DTYPE="float32")
+    F, Y, X = cfg.GRID_SHAPE
+    torch.manual_seed(cfg.SEED)
+    ref_model = GridVoxelGNNGenerator(cfg).to(dev).eval()
+    packed = fast_infer.prepare(ref_model, cfg)
+    seeds = list(range(1000, 1000 + REQUESTS))
+    samples = [process_building(*generate_building_real_scale(s), cfg, str(s)) for s in seeds]
+    batch = pack_grid(samples[:MAX_BATCH], cfg, batch_slots=MAX_BATCH).to(dev)
+    zgen = torch.Generator(device=dev).manual_seed(1)
+    z = torch.randn(MAX_BATCH, F, Y, X, cfg.Z_DIM, generator=zgen, device=dev)
+    with torch.no_grad():
+        x_hg = ref_model.encode(batch, z)[0].reshape(MAX_BATCH, F, Y, X, -1).contiguous()
+    return cfg, ref_model, packed, seeds, samples, batch, zgen, z, x_hg
+
+
+def hourglass_layout(args, card):
+    """The serving kernel at the server's shapes: launches a stack call, the cluster it
+    chooses and the others that fit (shared memory, clusters the card holds at once,
+    time in turns with the chosen one), registers, and the device time by layer and
+    phase from a traced launch.  Returns the launches of one stack call."""
+    from building_gan_torch.ops import _build
+    from building_gan_torch.ops import hourglass as hg
+
+    x, mask, Ws, atts, vecs, chans = args[:6]
+    B, F, Y, X, cmax = x.shape
+    R, L = F * Y * X, len(chans)
+    lib = hg._load()
+    cc = hg.c_chans(chans)
+    C = hg.cluster_size(B, R, cmax, 1, chans)
+    before = hg.launches.value
+    with torch.no_grad():
+        hg.hourglass_cuda(*args)
+    torch.cuda.synchronize()
+    per_call = hg.launches.value - before
+    say(f"hourglass kernel: {per_call} launch a stack call of {L} layers; it chooses a cluster of "
+        f"{C} CTAs a slot ({(R + C - 1) // C} rows each), {B * C} CTAs for {B} slots, "
+        f"{lib.hg_smem_bytes(R, cmax, 1, cc, L, C)} bytes of shared memory a CTA")
+    for line in _build.build_log.get("hourglass", (0.0, []))[1]:
+        say("hourglass kernel ptxas:", line[:160])
+    sizes = [c for c in range(1, 17) if lib.hg_smem_bytes(R, cmax, 1, cc, L, c) <= 232448]
+    say("hourglass kernel: cluster sizes that fit, (CTAs, rows a CTA, bytes a CTA, clusters the card "
+        "holds at once by cudaOccupancyMaxActiveClusters): " + ", ".join(
+            f"({c}, {(R + c - 1) // c}, {lib.hg_smem_bytes(R, cmax, 1, cc, L, c)}, "
+            f"{lib.hg_max_active_clusters(R, cmax, 1, cc, L, c)})" for c in sizes))
+    with torch.no_grad():
+        for c in sizes:
+            hg.hourglass_cuda(*args, cluster=c)
+        torch.cuda.synchronize()
+        times = {}
+        for c in sizes + sizes[::-1]:
+            times.setdefault(c, []).append(timed_ms(lambda: hg.hourglass_cuda(*args, cluster=c), 10))
+    say(f"hourglass kernel ms by cluster size (CUDA events, 10 launches, in turns, on {card}): " +
+        ", ".join(f"{c}: {a:.4f}/{b:.4f}" for c, (a, b) in times.items()) + f"; chosen {C}")
+
+    # a traced launch (after a warm one): each CTA's clock at its trace points
+    npts = 1 + 8 * L
+    trace = torch.zeros(B * C * npts, dtype=torch.int64, device=x.device)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(2):
+        rc = lib.hg_forward(x.data_ptr(), mask.data_ptr(), None, 1, Ws.data_ptr(), atts.data_ptr(),
+                            vecs.data_ptr(), cc, L, B, F, Y, X, cmax, 0.2, 1e-5,
+                            out.data_ptr(), C, trace.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"traced hourglass launch failed: {lib.hg_error_string(rc).decode()}")
+    torch.cuda.synchronize()
+    t = trace.reshape(B * C, npts).double().cpu() / 1e6  # ms
+    pts = t[:, 1:].reshape(B * C, L, 8)
+    names = ("GEMM+scores+barrier", "softmax", "aggregate", "stats", "barrier", "merge", "norm+ReLU")
+    say(f"hourglass kernel by layer (device ms, mean over the {B * C} CTAs, %globaltimer): a CTA "
+        f"spans {(t[:, -1] - t[:, 0]).mean().item():.4f} ms, all CTAs "
+        f"{(t[:, -1].max() - t[:, 0].min()).item():.4f} ms; prologue (x, row metadata, counts) "
+        f"{(pts[:, 0, 0] - t[:, 0]).mean().item():.4f}")
+    say("  layer  ci ->  co   total  " + "  ".join(names))
+    for l, (ci, co) in enumerate(chans):
+        parts = [(pts[:, l, i + 1] - pts[:, l, i]).mean().item() for i in range(7)]
+        say(f"  {l:5d} {ci:3d} -> {co:3d}  {sum(parts):.4f}  " + "  ".join(f"{v:.4f}" for v in parts))
+    tot = [(pts[:, :, i + 1] - pts[:, :, i]).sum(1).mean().item() for i in range(7)]
+    say("  sum over layers: " + ", ".join(f"{n} {v:.4f}" for n, v in zip(names, tot)) + " ms")
+    return per_call
+
+
+def time_hourglass_only(tree) -> int:
+    """``python3 chip_smoke.py --time-hourglass [DIR]``: the serving kernel alone at the
+    server's shapes, CUDA events over 3 x 50 launches; DIR's building_gan_torch
+    instead of this one's when given (a tree to compare, e.g. the parent commit
+    unpacked by git archive).  One "hourglass-time" line; no checks, no result line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    import os
+
+    if tree:
+        sys.path.insert(0, os.path.abspath(tree))
+    from building_gan_torch.ops import hourglass as hg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _, _, packed, _, _, batch, _, _, x_hg = serving_inputs(dev)
+    args = (x_hg, batch.mask.contiguous(), packed["Ws"], packed["atts"], packed["vecs"],
+            packed["chans"], None, 1)
+    with torch.no_grad():
+        for _ in range(3):
+            hg.hourglass_cuda(*args)
+        torch.cuda.synchronize()
+        ms = [timed_ms(lambda: hg.hourglass_cuda(*args), 50) for _ in range(3)]
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(hg.__file__))))
+    say(f"hourglass-time: {root}: kernel {' '.join(f'{m:.4f}' for m in ms)} ms (50 launches "
+        f"each, CUDA events) on {card_line()}")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from building_gan_torch.config import Configuration
-    from building_gan_torch.data import generate_building_real_scale, pack_grid, process_building
+    from building_gan_torch.data import pack_grid
     from building_gan_torch.models import fast_infer
     from building_gan_torch.models.grid_models import GridVoxelGNNGenerator
     from building_gan_torch.ops import _build
@@ -720,20 +862,10 @@ def main() -> int:
 
     # 3. kernel vs plain at full width, K=1 (real buildings) and K=4
     t_phase = time.perf_counter()
-    cfg = Configuration(COMPUTE_DTYPE="float32")
+    cfg, ref_model, packed, seeds, samples, batch, zgen, z, x_hg = serving_inputs(dev)
     F, Y, X = cfg.GRID_SHAPE
-    torch.manual_seed(cfg.SEED)
-    ref_model = GridVoxelGNNGenerator(cfg).to(dev).eval()
-    packed = fast_infer.prepare(ref_model, cfg)
     chans = packed["chans"]
     cmax = cfg.GENERATOR_HIDDEN_DIM
-    seeds = list(range(1000, 1000 + REQUESTS))
-    samples = [process_building(*generate_building_real_scale(s), cfg, str(s)) for s in seeds]
-    batch = pack_grid(samples[:MAX_BATCH], cfg, batch_slots=MAX_BATCH).to(dev)
-    zgen = torch.Generator(device=dev).manual_seed(1)
-    z = torch.randn(MAX_BATCH, F, Y, X, cfg.Z_DIM, generator=zgen, device=dev)
-    with torch.no_grad():
-        x_hg = ref_model.encode(batch, z)[0].reshape(MAX_BATCH, F, Y, X, cmax).contiguous()
     mask_k1 = batch.mask.contiguous()
     mask_k4 = (torch.rand(MAX_BATCH, F, Y, X, generator=zgen, device=dev) < 0.6).float()
     iy = torch.arange(Y, device=dev)[:, None].expand(Y, X)
@@ -856,6 +988,9 @@ def main() -> int:
         f"({bound_by}) on {card}")
     say(f"time: kernel {nbytes / ms / 1e6:.1f} GB/s, {flops / ms / 1e6:.1f} GFLOP/s; "
         f"{100 * bound_ms / ms:.2f}% of bound")
+    per_call = hourglass_layout(args, card)
+    if per_call != 1:
+        raise AssertionError(f"the hourglass stack took {per_call} launches, expected 1")
 
     # 5b. where one served batch's time goes (host clock around synchronised steps)
     def wall(fn):
@@ -999,4 +1134,6 @@ def steps_only(n: int) -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--steps":
         sys.exit(steps_only(int(sys.argv[2])))
+    if len(sys.argv) in (2, 3) and sys.argv[1] == "--time-hourglass":
+        sys.exit(time_hourglass_only(sys.argv[2] if len(sys.argv) == 3 else None))
     sys.exit(main())

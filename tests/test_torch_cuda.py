@@ -7,11 +7,13 @@ has only the port's dependencies:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
 (``--noconftest`` because tests/conftest.py imports JAX).  f32 with TF32
-off.  The kernel is held against the plain version run in float64: its max
-abs error must be at most 4x that of the plain version run in float32, plus
-1e-4.  The 1-channel GraphNorm layers of the 128 -> 1 -> 128 stack magnify
-f32 rounding to ~1e-2 on a few outputs, so no fixed tolerance fits both that
-and a fault, which moves outputs by their own size.
+off.  The kernel runs the stack in one launch, a thread block cluster a
+slot; it raises on a slot no cluster of 16 CTAs holds, and on a cluster
+size the slot does not fit.  It is held against the plain version run in
+float64: its max abs error must be at most 4x that of the plain version run
+in float32, plus 1e-4.  The 1-channel GraphNorm layers of the 128 -> 1 ->
+128 stack magnify f32 rounding to ~1e-2 on a few outputs, so no fixed
+tolerance fits both that and a fault, which moves outputs by their own size.
 """
 
 import numpy as np
@@ -81,6 +83,48 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         hg.hourglass_fwd(x, mask, Ws, atts, vecs, chans, num_graphs=2)  # no gid plane
     with pytest.raises(ValueError):
         hg.hourglass_fwd(x.transpose(1, 2), mask, Ws, atts, vecs, chans)
+    # the largest slot a 16-CTA cluster holds at the config of record's widths
+    # and K = 1 is 4,448 rows; one of 4,800 rows raises before any launch
+    with torch.no_grad():
+        Ws, atts, vecs = (a.to(cuda_device) for a in hg.pack_gat_weights(GridHourglass(128, 7)))
+    chans = hg.hourglass_channel_pairs(128, 7)
+    big = torch.zeros(1, 3, 40, 40, 128, device=cuda_device)
+    big_mask = torch.ones(1, 3, 40, 40, device=cuda_device)
+    assert hg.cluster_size(1, 4800, 128, 1, chans) == 0 < hg.cluster_size(1, 4448, 128, 1, chans)
+    before = hg.launches.value
+    with pytest.raises(ValueError, match="cluster"):
+        hg.hourglass_fwd(big, big_mask, Ws, atts, vecs, chans)
+    # a cluster too small for the slot is a refused configuration: it raises, no fallback
+    x = torch.zeros(1, 11, 12, 12, 128, device=cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        hg.hourglass_cuda(x, torch.ones(1, 11, 12, 12, device=cuda_device), Ws, atts, vecs, chans,
+                          cluster=5)
+    assert hg.launches.value == before
+
+
+@pytest.mark.cuda
+def test_kernel_is_deterministic_and_slot_independent(cuda_device):
+    """Two calls on the same inputs give the same bits, and a slot's output does not
+    depend on its batchmates (at one batch size, so one cluster size: the server
+    always runs max_batch slots): the server batches requests and relies on both."""
+    gen = torch.Generator().manual_seed(3)
+    B, F, Y, X = 4, 11, 12, 12
+    torch.manual_seed(3)
+    with torch.no_grad():
+        Ws, atts, vecs = (a.to(cuda_device) for a in hg.pack_gat_weights(GridHourglass(128, 7)))
+    chans = hg.hourglass_channel_pairs(128, 7)
+    x = torch.randn(B, F, Y, X, 128, generator=gen).to(cuda_device)
+    mask = (torch.rand(B, F, Y, X, generator=gen) < 0.6).float().to(cuda_device)
+    first = hg.hourglass_fwd(x, mask, Ws, atts, vecs, chans)
+    again = hg.hourglass_fwd(x, mask, Ws, atts, vecs, chans)
+    x2, mask2 = x.clone(), mask.clone()
+    x2[1:] = torch.randn(B - 1, F, Y, X, 128, generator=gen).to(cuda_device)
+    mask2[1:] = (torch.rand(B - 1, F, Y, X, generator=gen) < 0.3).float().to(cuda_device)
+    other = hg.hourglass_fwd(x2, mask2, Ws, atts, vecs, chans)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert torch.equal(first[0], other[0])
+    assert not torch.equal(first[1], other[1])
 
 
 @pytest.mark.cuda

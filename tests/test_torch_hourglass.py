@@ -4,6 +4,11 @@ K=1: against ``hourglass_fwd`` in Pallas interpret mode, as tests/test_pallas.py
 runs it.  K>1: against the flax ``GridHourglass``, which the TPU kernel (per-
 slot statistics) does not match and the port's kernel does.
 
+test_plain_matches_pallas_interpret_k1 builds its own inputs (its own
+Configuration and synthetic buildings, a threefry key named outright, one
+torch thread) rather than share the session fixtures and the process's
+default PRNG implementation with the other test files of its xdist worker.
+
 Tolerance rtol 1e-4 / atol 1e-5 (tests/test_pallas.py:73) for one call of
 the stack; STACK_ATOL = 1e-4 where the flax stack is the reference.  The
 stack narrows to 4 channels (hidden 32, repeat 3: 16, 8, 4, 8, 16, 32),
@@ -21,7 +26,9 @@ import numpy as np
 import pytest
 import torch
 
+from building_gan_tpu.config import Configuration
 from building_gan_tpu.data import grid as jgrid
+from building_gan_tpu.data import preprocess, synthetic
 from building_gan_tpu.models.grid_layers import GridHourglass as JGridHourglass
 from building_gan_tpu.ops.pallas import hourglass as jhg
 
@@ -31,6 +38,7 @@ from building_gan_torch.ops import hourglass as hg
 
 from test_torch_layers import ATOL, RTOL, multi_batch, perturb, t
 from test_train import tiny_cfg
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 HIDDEN, REPEAT = 32, 3
 STACK_ATOL = 1e-4
@@ -51,7 +59,8 @@ def _case(samples, small_cfg, multi, seed=0):
     feats = rng.normal(size=tuple(gb.mask.shape) + (HIDDEN,)).astype(np.float32)
     feats = feats * np.asarray(gb.mask)[..., None]
     hgj = JGridHourglass(conv_type="GATCONV", hidden_dim=HIDDEN, repeat=REPEAT)
-    params = hgj.init({"params": jax.random.key(seed)}, jnp.array(feats), jnp.array(gb.mask), True)
+    key = jax.random.key(seed, impl="threefry2x32")
+    params = hgj.init({"params": key}, jnp.array(feats), jnp.array(gb.mask), True)
     params = perturb(params["params"], seed + 1, scale=0.1)
     return cfg, gb, feats, hgj, params
 
@@ -71,8 +80,22 @@ def test_pack_gat_weights_matches_jax(synthetic_samples, small_cfg):
         np.testing.assert_array_equal(g.detach().numpy(), np.asarray(w))
 
 
-def test_plain_matches_pallas_interpret_k1(synthetic_samples, small_cfg, highest_precision):
-    cfg, gb, feats, _, params = _case(synthetic_samples, small_cfg, False)
+def _own_samples():
+    """Fresh copies of conftest's small_cfg and first four synthetic_samples."""
+    cfg = Configuration(
+        LAYOUT="edges", PACK_GRAPHS=4, PACK_LOCAL_NODES=256, PACK_LOCAL_EDGES=2048,
+        PACK_VOXEL_NODES=2048, PACK_VOXEL_EDGES=16384,
+    )
+    samples = []
+    for i in range(4):
+        g, l, v = synthetic.generate_building(seed=1000 + i)
+        samples.append(preprocess.process_building(g, l, v, cfg, f"{i:06d}"))
+    return samples, cfg
+
+
+def test_plain_matches_pallas_interpret_k1(highest_precision):
+    samples, small_cfg = _own_samples()
+    cfg, gb, feats, _, params = _case(samples, small_cfg, False)
     Ws, atts, vecs = jhg.pack_gat_weights(params, HIDDEN, REPEAT)
     want = jhg.hourglass_fwd(
         jnp.array(feats), jnp.array(gb.mask), Ws, atts, vecs,
