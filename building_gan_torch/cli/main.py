@@ -1,0 +1,213 @@
+"""Command-line entry points of the port: synth / preprocess / train / test.
+
+Port of ``building_gan_tpu/cli/main.py``: every entry point takes flags
+named after the configuration fields, with the configuration's defaults.
+``--device`` (default ``cuda``) takes the place of ``--platform``: the
+trainer runs on the card unless asked for the CPU.
+
+    python -m building_gan_torch.cli.main synth --data-path data/raw --num 100
+    python -m building_gan_torch.cli.main preprocess --data-path data/raw --save-data-path data/npz
+    python -m building_gan_torch.cli.main train --save-data-path data/npz --log-dir runs/a \\
+        --compute-dtype float32 --epochs 1000
+    python -m building_gan_torch.cli.main test --save-data-path data/npz --log-dir runs/a \\
+        --compute-dtype float32
+
+The port computes in float32 only, and ``COMPUTE_DTYPE`` defaults to
+bfloat16 as in the JAX package: ``train`` and ``test`` raise unless given
+``--compute-dtype float32``.  Flags for what the port does not have yet raise
+and name the ROADMAP item that ports it; ``ingest``, ``analyze``, ``viz`` and
+``sanity`` wait for Queue A item 8.  ``--use-pallas``, ``--device-resident``
+and ``--pack-gemms`` schedule TPU work in the JAX package; here they are
+accepted and change nothing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def _add_config_overrides(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--data-path", default=None, help="raw data root (DATA_PATH)")
+    p.add_argument("--save-data-path", default=None, help="processed data dir (SAVE_DATA_PATH)")
+    p.add_argument("--log-dir", default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None, help="graphs per step (BATCH_SIZE)")
+    p.add_argument("--n-critic", type=int, default=None)
+    p.add_argument("--conv-type", default=None, choices=["GCNCONV", "GRAPHCONV", "GATCONV", "GATV2CONV"])
+    p.add_argument("--data-slicer", type=int, default=None)
+    p.add_argument("--pack-graphs", type=int, default=None)
+    p.add_argument("--pack-voxel-nodes", type=int, default=None)
+    p.add_argument("--pack-voxel-edges", type=int, default=None)
+    p.add_argument("--pack-local-nodes", type=int, default=None)
+    p.add_argument("--pack-local-edges", type=int, default=None)
+    p.add_argument("--mesh-data", type=int, default=None, help="data-parallel shards")
+    p.add_argument("--layout", default=None, choices=["grid", "edges"], help="compute layout (LAYOUT)")
+    p.add_argument("--generator-arch", default=None, choices=["hourglass", "transformer"], help="GENERATOR_ARCH")
+    p.add_argument("--batch-level-matching", action="store_true", help="quirk Q1 parity")
+    p.add_argument("--batch-level-graphnorm", action="store_true", help="quirk Q5 parity")
+    p.add_argument("--use-pallas", action="store_true", help="USE_PALLAS (no effect in the port)")
+    p.add_argument("--compute-dtype", default=None, choices=["bfloat16", "float32"], help="COMPUTE_DTYPE")
+    p.add_argument("--slot-graphs", type=int, default=None, help="buildings bin-packed per grid slot (GRID_SLOT_GRAPHS)")
+    p.add_argument("--grid-local-nodes", type=int, default=None, help="packed local-node width per slot (GRID_LOCAL_NODES)")
+    p.add_argument("--grid-buckets", default=None,
+                   help="comma-separated FxYxX shapes (GRID_BUCKETS; not ported)")
+    p.add_argument("--device-resident", action="store_true",
+                   help="DEVICE_RESIDENT_DATA (no effect in the port)")
+    p.add_argument("--device-resident-compositions", type=int, default=None,
+                   help="DEVICE_RESIDENT_COMPOSITIONS (no effect in the port)")
+    p.add_argument("--ckpt-latest-interval", type=int, default=None,
+                   help="crash-recovery checkpoint every N epochs (CKPT_LATEST_INTERVAL; 0 = off)")
+    p.add_argument("--pack-gemms", action="store_true", help="PACK_NARROW_GEMMS (no effect in the port)")
+    p.add_argument("--hourglass-min-channels", type=int, default=None,
+                   help="clamp the hourglass channel halving at this floor "
+                        "(HOURGLASS_MIN_CHANNELS; 1 = reference schedule)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train and test on (default cuda; cpu to run without a GPU)")
+
+
+def _not_ported(cfg) -> None:
+    """Raise on a configuration the port cannot run yet, naming the ROADMAP item."""
+    if cfg.LAYOUT != "grid":
+        raise NotImplementedError("--layout edges: the edge-list layout is not ported yet "
+                                  "(ROADMAP Queue A item 9)")
+    if cfg.GENERATOR_ARCH != "hourglass":
+        raise NotImplementedError("--generator-arch transformer is not ported yet "
+                                  "(ROADMAP Queue A item 9)")
+    if cfg.MESH_DATA > 1:
+        raise NotImplementedError("--mesh-data > 1: data parallelism is not ported yet "
+                                  "(ROADMAP Queue A item 6)")
+    if cfg.BATCH_LEVEL_MATCHING or cfg.BATCH_LEVEL_GRAPHNORM:
+        raise NotImplementedError("the batch-level quirk modes are not ported yet "
+                                  "(ROADMAP Queue A item 9)")
+    if cfg.GRID_BUCKETS:
+        raise NotImplementedError("--grid-buckets is not ported yet (ROADMAP Queue A item 9)")
+    if cfg.GENERATOR_CONV_TYPE != "GATCONV":
+        raise NotImplementedError(f"--conv-type {cfg.GENERATOR_CONV_TYPE}: only GATCONV is "
+                                  "ported (ROADMAP Queue A item 9)")
+
+
+def _build_config(args):
+    from ..config import Configuration
+
+    cfg = Configuration()
+    mapping = {
+        "data_path": "DATA_PATH",
+        "save_data_path": "SAVE_DATA_PATH",
+        "log_dir": "LOG_DIR",
+        "epochs": "EPOCHS",
+        "seed": "SEED",
+        "batch_size": "BATCH_SIZE",
+        "n_critic": "N_CRITIC",
+        "data_slicer": "DATA_SLICER",
+        "pack_graphs": "PACK_GRAPHS",
+        "pack_voxel_nodes": "PACK_VOXEL_NODES",
+        "pack_voxel_edges": "PACK_VOXEL_EDGES",
+        "pack_local_nodes": "PACK_LOCAL_NODES",
+        "pack_local_edges": "PACK_LOCAL_EDGES",
+        "mesh_data": "MESH_DATA",
+        "layout": "LAYOUT",
+        "generator_arch": "GENERATOR_ARCH",
+        "compute_dtype": "COMPUTE_DTYPE",
+        "slot_graphs": "GRID_SLOT_GRAPHS",
+        "grid_local_nodes": "GRID_LOCAL_NODES",
+        "device_resident_compositions": "DEVICE_RESIDENT_COMPOSITIONS",
+        "ckpt_latest_interval": "CKPT_LATEST_INTERVAL",
+        "hourglass_min_channels": "HOURGLASS_MIN_CHANNELS",
+    }
+    overrides = {}
+    for arg_name, field in mapping.items():
+        v = getattr(args, arg_name, None)
+        if v is not None:
+            overrides[field] = v
+    if getattr(args, "conv_type", None):
+        overrides["GENERATOR_CONV_TYPE"] = args.conv_type
+        overrides["DISCRIMINATOR_CONV_TYPE"] = args.conv_type
+    for flag, field in (("batch_level_matching", "BATCH_LEVEL_MATCHING"),
+                        ("batch_level_graphnorm", "BATCH_LEVEL_GRAPHNORM"),
+                        ("use_pallas", "USE_PALLAS"),
+                        ("device_resident", "DEVICE_RESIDENT_DATA"),
+                        ("pack_gemms", "PACK_NARROW_GEMMS")):
+        if getattr(args, flag, False):
+            overrides[field] = True
+    if getattr(args, "grid_buckets", None):
+        overrides["GRID_BUCKETS"] = tuple(
+            tuple(int(d) for d in shape.split("x")) for shape in args.grid_buckets.split(",")
+        )
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def cmd_synth(args):
+    from ..data.synthetic import write_dataset
+
+    root = args.data_path or _build_config(args).DATA_PATH
+    write_dataset(root, args.num, seed=args.seed or 0)
+    print(f"wrote {args.num} synthetic buildings under {root}")
+
+
+def cmd_preprocess(args):
+    from ..data.preprocess import create_dataset
+
+    cfg = _build_config(args)
+    t0 = time.time()
+    n = create_dataset(cfg, workers=getattr(args, "workers", 0))
+    dt = time.time() - t0
+    print(f"processed {n} buildings in {dt:.1f}s ({n / max(dt, 1e-9):.2f} it/s)")
+
+
+def _make_trainer(args):
+    import torch
+
+    from ..data.pipeline import GraphDataLoaders
+    from ..models.grid_models import GridVoxelGNNDiscriminator, GridVoxelGNNGenerator
+    from ..train.trainer import Trainer
+
+    cfg = _build_config(args)
+    _not_ported(cfg)
+    cfg.require_float32(f"building_gan_torch {args.cmd}")  # before the data loads
+    loaders = GraphDataLoaders(cfg)
+    torch.manual_seed(cfg.SEED)  # the models' initial weights
+    gen = GridVoxelGNNGenerator(cfg)
+    disc = GridVoxelGNNDiscriminator(cfg)
+    return Trainer(gen, disc, loaders, cfg, log_dir=args.log_dir, device=args.device)
+
+
+def cmd_train(args):
+    _make_trainer(args).train()
+
+
+def cmd_test(args):
+    _make_trainer(args).test(num_samples_to_viz=args.num_samples_to_viz)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(prog="building_gan_torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("synth", help="generate a synthetic raw dataset")
+    p.add_argument("--num", type=int, default=100)
+    _add_config_overrides(p)
+    p.set_defaults(fn=cmd_synth)
+
+    p = sub.add_parser("preprocess", help="raw JSON -> NPZ pairs")
+    p.add_argument("--workers", type=int, default=0, help="host-parallel worker processes")
+    _add_config_overrides(p)
+    p.set_defaults(fn=cmd_preprocess)
+
+    p = sub.add_parser("train", help="full training run")
+    _add_config_overrides(p)
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("test", help="test-split metrics")
+    p.add_argument("--num-samples-to-viz", type=int, default=0,
+                   help="test samples to render (not ported yet: ROADMAP Queue A item 8)")
+    _add_config_overrides(p)
+    p.set_defaults(fn=cmd_test)
+
+    args = parser.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

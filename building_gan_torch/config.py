@@ -201,12 +201,25 @@ class Configuration:
     def param_dtype(self) -> torch.dtype:
         return _TORCH_DTYPES[self.PARAM_DTYPE]
 
+    @property
+    def GLOBAL_GRAPH_DATA_PATH(self) -> str:
+        return os.path.join(self.DATA_PATH, "global_graph_data")
+
+    @property
+    def LOCAL_GRAPH_DATA_PATH(self) -> str:
+        return os.path.join(self.DATA_PATH, "local_graph_data")
+
+    @property
+    def VOXEL_GRAPH_DATA_PATH(self) -> str:
+        return os.path.join(self.DATA_PATH, "voxel_data")
+
     def require_float32(self, where: str) -> None:
         """Raise unless COMPUTE_DTYPE is "float32": the port computes in f32 only so far."""
         if self.COMPUTE_DTYPE != "float32":
             raise ValueError(
                 f"{where}: COMPUTE_DTYPE={self.COMPUTE_DTYPE!r} is not ported yet (bf16 and f16 "
-                'are not); the port computes in float32 only: set COMPUTE_DTYPE="float32"'
+                'are not); the port computes in float32 only: set COMPUTE_DTYPE="float32" '
+                "(on the command line: --compute-dtype float32)"
             )
 
     def to_dict(self) -> Dict[str, object]:

@@ -255,6 +255,13 @@ __device__ void keyed_reduce(float* acc, int K, int co, const Lanes& m, double* 
   }
 }
 
+// Doubles before bwd_rows_kernel's row staging: its 7 K x co planes, rounded up
+// to an even count so the float4 rows after them start 16-byte aligned (7 K co
+// is odd when K and co are, e.g. a 1-channel layer at K = 1).
+__host__ __device__ __forceinline__ int rows_planes_doubles(int K, int co) {
+  return (7 * K * co + 1) & ~1;
+}
+
 // Floats of keyed_add cells for NQ quantities.
 __host__ __device__ __forceinline__ int keyed_cells(int NQ, int K, int V) {
   return NQ * kWarps * K * V * 32;
@@ -833,7 +840,7 @@ bwd_rows_kernel(const double* __restrict__ part, const double* __restrict__ stat
   }
 
   const int nrows = rend - rbeg;
-  float* srow = reinterpret_cast<float*>(dsm + 7 * KC);  // [rows][16]
+  float* srow = reinterpret_cast<float*>(dsm + rows_planes_doubles(K, co));  // [rows][16]
   int* skey = reinterpret_cast<int*>(srow + 16 * nrows);  // [rows]
   int off[6];
   dir_offsets(Y, X, off);
@@ -1349,7 +1356,8 @@ int backward_v(const float* x, const float* planes, const float* w, const float*
                                                             part, R, co, cmax, K);
   GT_LAUNCHED("bwd_norm_kernel");
   const int chunk = (R + P - 1) / P;
-  const size_t rows_smem = sizeof(double) * 7 * (size_t)K * co + sizeof(float) * 17 * (size_t)chunk;
+  const size_t rows_smem =
+      sizeof(double) * (size_t)rows_planes_doubles(K, co) + sizeof(float) * 17 * (size_t)chunk;
   GT_TRY(allow_smem(bwd_rows_kernel<V>, rows_smem));
   bwd_rows_kernel<V><<<grid, kThreads, rows_smem, s>>>(part, stats, nk, vec, bits, gy, v, h, scores,
                                                    scores + rows, alphas, planes, levels, gu, de,

@@ -17,7 +17,9 @@ building per slot (K=1), which is what the server uses.  ``pack_grid_multi``
 and ``pack_grid_multi_from_slots`` (the 3D first-fit-decreasing packer the
 train step uses) place up to K buildings a slot: such a batch carries a
 per-cell ``gid`` plane and ``local_gid`` node tags, and its graph-level
-fields are (B, K).
+fields are (B, K).  ``grid_compatible`` checks that a building's edge list is
+its cells' face adjacency; ``stack_grid_batches`` stacks batches on a new
+leading (device) axis.
 """
 
 from __future__ import annotations
@@ -65,10 +67,11 @@ class GridBatch:
         """K: max buildings per grid slot (1 in single-building packing)."""
         return 1 if self.gid is None else self.graph_mask.shape[1]
 
-    def to(self, device) -> "GridBatch":
+    def to(self, device, non_blocking: bool = False) -> "GridBatch":
         return GridBatch(
             **{
-                f.name: None if getattr(self, f.name) is None else getattr(self, f.name).to(device)
+                f.name: None if getattr(self, f.name) is None
+                else getattr(self, f.name).to(device, non_blocking=non_blocking)
                 for f in dataclasses.fields(self)
             }
         )
@@ -85,6 +88,29 @@ class GridBatch:
             dtype = torch.int64 if np.issubdtype(a.dtype, np.integer) else torch.float32
             out[name] = torch.as_tensor(a).to(dtype)
         return cls(**out)
+
+
+def grid_compatible(voxel: VoxelGraph, grid_shape: Tuple[int, int, int]) -> bool:
+    """True iff locations are unique, within shape, and the edge list equals
+    the face adjacency of the occupied cells."""
+    loc = voxel.location
+    F, Y, X = grid_shape
+    if loc.shape[0] == 0:
+        return False
+    if loc.min() < 0 or (loc >= np.array([F, Y, X])).any():
+        return False
+    keys = set(map(tuple, loc.tolist()))
+    if len(keys) != loc.shape[0]:
+        return False
+    index = {tuple(l): i for i, l in enumerate(loc.tolist())}
+    implied = set()
+    for i, (f, y, x) in enumerate(loc.tolist()):
+        for df, dy, dx in ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1)):
+            nb = (f + df, y + dy, x + dx)
+            if nb in index:
+                implied.add((i, index[nb]))
+    actual = set(map(tuple, voxel.edge_index.T.tolist()))
+    return implied == actual
 
 
 def pack_grid(
@@ -382,3 +408,13 @@ def pack_grid_multi_from_slots(
         graph_mask=graph_mask, far=far, site_area=site_area,
         gid=gid, local_gid=local_gid,
     )
+
+
+def stack_grid_batches(batches: Sequence[GridBatch]) -> GridBatch:
+    """Stack batches of one shape on a new leading axis (one batch a device)."""
+    first = batches[0]
+    return GridBatch(**{
+        f.name: None if getattr(first, f.name) is None
+        else torch.stack([getattr(b, f.name) for b in batches])
+        for f in dataclasses.fields(GridBatch)
+    })

@@ -6,11 +6,17 @@ reference preprocessor: 17-dim local node features
 site_area/1600]`` and 12-dim voxel features ``[coordinate/42(3),
 dimension/11(3), location/11(3), far, floor/10, site_area/1600]``; legacy
 VOID_OLD labels become VOID; edge lists sorted by (src, dst).
+
+The NPZ files use the JAX package's keys, so a file written by either
+package loads in the other.  ``create_dataset`` parses the JSON with the
+standard library (the JAX package's native C++ parser is not ported).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import List, Tuple
 
 import numpy as np
@@ -211,3 +217,138 @@ def process_building(
     )
 
     return local, voxel
+
+
+# --- NPZ serialization -------------------------------------------------------
+
+def save_local(path: str, g: LocalGraph, compress: bool = False) -> None:
+    (np.savez_compressed if compress else np.savez)(
+        path,
+        x=g.x,
+        types=g.types,
+        types_onehot=g.types_onehot,
+        type_ratio_per_node=g.type_ratio_per_node,
+        edge_index=g.edge_index,
+        floor_levels=g.floor_levels,
+        center=g.center,
+        type_ids=g.type_ids,
+        far=np.float32(g.far),
+        site_area=np.float32(g.site_area),
+        data_number=np.str_(g.data_number),
+    )
+
+
+def load_local(path: str) -> LocalGraph:
+    with np.load(path) as z:
+        return LocalGraph(
+            x=z["x"],
+            types=z["types"],
+            types_onehot=z["types_onehot"],
+            type_ratio_per_node=z["type_ratio_per_node"],
+            edge_index=z["edge_index"],
+            floor_levels=z["floor_levels"],
+            center=z["center"],
+            type_ids=z["type_ids"],
+            far=float(z["far"]),
+            site_area=float(z["site_area"]),
+            data_number=str(z["data_number"]),
+        )
+
+
+def save_voxel(path: str, g: VoxelGraph, compress: bool = False) -> None:
+    (np.savez_compressed if compress else np.savez)(
+        path,
+        x=g.x,
+        types=g.types,
+        types_onehot=g.types_onehot,
+        edge_index=g.edge_index,
+        floor_levels=g.floor_levels,
+        coordinate=g.coordinate,
+        dimension=g.dimension,
+        location=g.location,
+        node_ratio=g.node_ratio,
+        far=np.float32(g.far),
+        site_area=np.float32(g.site_area),
+        data_number=np.str_(g.data_number),
+    )
+
+
+def load_voxel(path: str) -> VoxelGraph:
+    with np.load(path) as z:
+        return VoxelGraph(
+            x=z["x"],
+            types=z["types"],
+            types_onehot=z["types_onehot"],
+            edge_index=z["edge_index"],
+            floor_levels=z["floor_levels"],
+            coordinate=z["coordinate"],
+            dimension=z["dimension"],
+            location=z["location"],
+            node_ratio=z["node_ratio"],
+            far=float(z["far"]),
+            site_area=float(z["site_area"]),
+            data_number=str(z["data_number"]),
+        )
+
+
+# --- dataset creation (reference DataCreator.create, data.py:398-461) --------
+
+def _sorted_json_files(directory: str) -> List[str]:
+    files = [os.path.join(directory, d) for d in os.listdir(directory)]
+    return sorted(files, key=lambda x: int(os.path.basename(x).replace(".json", "").split("_")[-1]))
+
+
+def _process_one(args) -> int:
+    gp, lp, vp, cfg = args
+    num_g = os.path.basename(gp).replace(".json", "").split("_")[-1]
+    num_l = os.path.basename(lp).replace(".json", "").split("_")[-1]
+    num_v = os.path.basename(vp).replace(".json", "").split("_")[-1]
+    if not num_g == num_l == num_v:
+        raise ValueError(f"mismatched building files: {gp}, {lp}, {vp}")
+    data_number = "".join(s for s in os.path.basename(gp) if s.isdigit())
+
+    with open(gp) as f:
+        g_data = json.load(f)
+    with open(lp) as f:
+        l_data = json.load(f)
+    with open(vp) as f:
+        v_data = json.load(f)
+
+    local, voxel = process_building(g_data, l_data, v_data, cfg, data_number)
+    save_local(os.path.join(cfg.SAVE_DATA_PATH, f"{data_number}{cfg.LOCAL_DATA_SUFFIX}"), local)
+    save_voxel(os.path.join(cfg.SAVE_DATA_PATH, f"{data_number}{cfg.VOXEL_DATA_SUFFIX}"), voxel)
+    return 1
+
+
+def create_dataset(configuration: Configuration, verbose: bool = True, workers: int = 0) -> int:
+    """Process every raw JSON triplet under ``DATA_PATH`` to NPZ pairs in
+    ``SAVE_DATA_PATH``; returns the count.  ``workers > 1`` spreads the
+    buildings over a pool of that many processes."""
+    cfg = configuration
+    global_files = _sorted_json_files(cfg.GLOBAL_GRAPH_DATA_PATH)
+    local_files = _sorted_json_files(cfg.LOCAL_GRAPH_DATA_PATH)
+    voxel_files = _sorted_json_files(cfg.VOXEL_GRAPH_DATA_PATH)
+    if not len(global_files) == len(local_files) == len(voxel_files):
+        raise ValueError(
+            f"{len(global_files)} global, {len(local_files)} local and {len(voxel_files)} voxel "
+            f"files under {cfg.DATA_PATH}"
+        )
+
+    os.makedirs(cfg.SAVE_DATA_PATH, exist_ok=True)
+
+    tasks = [(gp, lp, vp, cfg) for gp, lp, vp in zip(global_files, local_files, voxel_files)]
+    n = 0
+    if workers and workers > 1:
+        import multiprocessing as mp
+
+        with mp.get_context("spawn").Pool(workers) as pool:
+            for r in pool.imap_unordered(_process_one, tasks, chunksize=32):
+                n += r
+                if verbose and n % 1000 == 0:
+                    print(f"processed {n}/{len(tasks)}")
+    else:
+        for t in tasks:
+            n += _process_one(t)
+            if verbose and n % 1000 == 0:
+                print(f"processed {n}/{len(tasks)}")
+    return n

@@ -5,11 +5,14 @@ Same generator, same seeds and same output as
 ``(global_json, local_json, voxel_json)`` dicts with irregular per-axis cell
 widths, a vertical service core, a ground-floor lobby, offices, a roof
 mechanical room and setback voids; ``generate_building_real_scale`` draws
-buildings at the reference dataset's statistics (grids up to (11, 12, 12)).
+buildings at the reference dataset's statistics (grids up to (11, 12, 12));
+``write_dataset`` writes a raw dataset in the reference directory layout.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -217,3 +220,26 @@ def generate_building_real_scale(seed: int) -> Tuple[dict, dict, dict]:
         nf_range=(3, 11),
         coordinate_budget=42,
     )
+
+
+def write_dataset(root: str, num_buildings: int, seed: int = 0) -> None:
+    """Write a synthetic raw dataset in the reference directory layout.
+
+    Creates ``{root}/global_graph_data/graph_global_NNNNNN.json``,
+    ``{root}/local_graph_data/graph_local_NNNNNN.json`` and
+    ``{root}/voxel_data/voxel_NNNNNN.json``; building i is
+    ``generate_building(seed * 1_000_003 + i)``.
+    """
+    paths = {
+        "global_graph_data": "graph_global_{:06d}.json",
+        "local_graph_data": "graph_local_{:06d}.json",
+        "voxel_data": "voxel_{:06d}.json",
+    }
+    for sub in paths:
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+
+    for i in range(num_buildings):
+        g, l, v = generate_building(seed * 1_000_003 + i)
+        for sub, payload in zip(paths, (g, l, v)):
+            with open(os.path.join(root, sub, paths[sub].format(i)), "w") as f:
+                json.dump(payload, f)

@@ -17,6 +17,10 @@ same bits.  The JAX package's structured keys collapsed WGAN-GP training
 
 This module computes Philox in int64 tensor arithmetic: each 32 x 32 -> 64
 bit product is built from 16-bit halves, so no int64 product overflows.
+That is the plain version: ``dropout`` on a CPU tensor draws its mask so.  On
+a CUDA tensor it draws the bytes with the port's Philox kernel
+(``ops/gat_train.py::dropout_bytes_cuda``, the rounds of ``csrc/philox.cuh``),
+bit-equal to ``keep_mask``, which stays as the kernel's oracle.
 """
 
 from __future__ import annotations
@@ -102,8 +106,22 @@ def dropout(x: torch.Tensor, key: torch.Tensor, rate: float, width: int | None =
         return x
     if levels >= 256:
         return torch.zeros_like(x)
-    keep = keep_mask(tuple(x.shape), key, levels, width, x.device)
+    width = x.shape[-1] if width is None else width
+    if width < x.shape[-1]:
+        raise ValueError(f"padded width {width} is below the block's {x.shape[-1]} channels")
+    keep = _keep(tuple(x.shape), key, levels, width, x.device)
     return x * keep.to(x.dtype) * keep_scale(levels)
+
+
+def _keep(shape, key: torch.Tensor, levels: int, width: int, device) -> torch.Tensor:
+    """``keep_mask``'s bits: on the card the bytes of the B * R * width counters come
+    from the Philox kernel, viewed as (B, R, width), the first C channels kept."""
+    if device.type != "cuda":
+        return keep_mask(shape, key, levels, width, device)
+    from .gat_train import dropout_bytes_cuda  # gat_train imports this module
+
+    B, R, C = shape
+    return dropout_bytes_cuda(B * R * width, key).view(B, R, width)[..., :C] >= levels
 
 
 def draw_keys(n: int, generator: torch.Generator) -> torch.Tensor:

@@ -44,6 +44,7 @@ MAX_KEYS = 16
 
 fwd_launches = LaunchCounter()  # layer forwards launched on the card
 bwd_launches = LaunchCounter()  # layer backwards launched on the card
+bytes_launches = LaunchCounter()  # Philox dropout-byte draws launched on the card
 
 
 def flat_offsets(grid_shape) -> Tuple[int, ...]:
@@ -371,11 +372,14 @@ def fused_layer(x, planes, w, att, vec, key, grid_shape, ci, co, K=1, levels=0,
 
 def dropout_bytes_cuda(n: int, key: torch.Tensor) -> torch.Tensor:
     """The Philox dropout bytes of flat elements 0..n-1 under ``key``, drawn on the card."""
+    if key.device.type != "cuda":
+        raise ValueError(f"the dropout-byte kernel needs a CUDA key, got {key.device}")
     _check(key, "key", torch.int64, (2,), key.device)
     out = torch.empty(n, dtype=torch.uint8, device=key.device)
     lib = _load()
     with torch.cuda.device(key.device):
         _raise_on(lib, lib.gt_dropout_bytes(_ptr(out), n, _ptr(key), _stream(key.device)), "bytes")
+    bytes_launches.add()
     return out
 
 

@@ -61,6 +61,14 @@ def _flat_dirs(grid_shape: Tuple[int, int, int]):
     return tuple(dirs)
 
 
+@lru_cache(maxsize=None)
+def _boundary_masks(grid_shape: Tuple[int, int, int], device: torch.device):
+    """``_flat_dirs``'s boundary masks as tensors on ``device``, copied there once: a
+    copy from host memory each call would make the host wait for the device."""
+    return tuple(None if bm is None else torch.as_tensor(bm, device=device)
+                 for _, bm in _flat_dirs(grid_shape))
+
+
 def _nbr_valid_flat(
     maskf: torch.Tensor, grid_shape, gid: torch.Tensor | None = None
 ) -> torch.Tensor:
@@ -69,10 +77,11 @@ def _nbr_valid_flat(
     ``gid`` (B, R) additionally requires the neighbour to be of the same building.
     """
     planes = []
-    for off, bm in _flat_dirs(tuple(grid_shape)):
+    grid_shape = tuple(grid_shape)
+    for (off, _), bm in zip(_flat_dirs(grid_shape), _boundary_masks(grid_shape, maskf.device)):
         p = shift(maskf, 1, off)
         if bm is not None:
-            p = p * torch.as_tensor(bm, device=maskf.device)[None, :]
+            p = p * bm[None, :]
         if gid is not None:
             p = p * (shift(gid, 1, off) == gid).to(p.dtype)
         planes.append(p)

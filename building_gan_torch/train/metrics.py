@@ -6,10 +6,13 @@ confusion matrix (rows true, columns predicted) and sklearn's
 / F1 with 0 where a denominator is 0, the macro mean over the classes
 present in y_true or y_pred.  Per-graph scores come from per-graph
 matrices: per slot, or per (slot, building) on a K > 1 batch.
+``hist_quantile`` reads the trainer's epoch-summed per-graph F1 histogram on
+the host.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -57,6 +60,21 @@ def per_graph_f1_hist(per_graph_f1, graph_mask, bins: int = F1_HIST_BINS) -> tor
     oh = F.one_hot(idx.long(), bins).float()
     w = (graph_mask > 0).float()
     return (oh * w[..., None]).reshape(-1, bins).sum(0)
+
+
+def hist_quantile(hist, q: float) -> float:
+    """Quantile ``q`` of a per-graph F1 count histogram, as a bin center (host side).
+
+    The smallest bin whose cumulative count reaches ``q`` of the total; q = 0
+    gives the first non-empty bin.  An empty histogram gives 0.
+    """
+    hist = np.asarray(hist, dtype=np.float64)
+    total = hist.sum()
+    if total <= 0:
+        return 0.0
+    bins = hist.shape[0]
+    i = int(np.searchsorted(np.cumsum(hist), max(q * total, 1e-12), side="left"))
+    return (min(i, bins - 1) + 0.5) / bins
 
 
 def _min_over_real(per_graph_f1, graph_mask) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""The WGAN-GP train step, on one device.
+"""The WGAN-GP train step and the eval step, on one device.
 
 Port of ``building_gan_tpu/train/step.py`` with ``USE_PALLAS_TRAIN`` (no
 ``axis_name``): N_CRITIC critic updates, then one generator update, then the
@@ -11,6 +11,12 @@ It gets the same Philox dropout keys as that iteration's fused passes.
 Every random draw (z, the Gumbel noise, the GP's eps, the per-layer dropout
 keys) comes from the ``torch.Generator`` given to the step, on the batch's
 device.
+
+The eval step (``make_eval_step``) is the JAX package's validation step: a
+deterministic generator forward with its hourglass fused
+(``models/fast_infer.py``: the serving kernel on a CUDA batch), the G loss
+against the deterministic critic (``models/fast_train.py``: the training
+layer's forward kernel), and the metrics; no update and no autograd graph.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import NUM_CLASSES, Configuration
+from ..models import fast_infer
 from ..models import fast_train as FT
 from ..ops.dropout import draw_keys
 from ..ops.gat_train import build_planes
@@ -31,6 +38,12 @@ from .state import TrainState
 
 METRIC_KEYS = ("f1", "f1_min", "precision", "recall", "accuracy", "per_graph_f1_hist",
                "confusion_matrix")
+
+
+def _check_device(batch, model_device) -> None:
+    if batch.mask.device != model_device:
+        raise ValueError(f"the batch is on {batch.mask.device}, the modules on {model_device}: "
+                         "move the batch (batch.to(device)) first")
 
 
 def make_train_step(cfg: Configuration, state: TrainState) -> Callable:
@@ -77,10 +90,8 @@ def make_train_step(cfg: Configuration, state: TrainState) -> Callable:
         return d_loss.detach()
 
     def train_step(batch, generator: torch.Generator) -> dict:
+        _check_device(batch, model_device)
         mask = batch.mask
-        if mask.device != model_device:
-            raise ValueError(f"the batch is on {mask.device}, the modules on {model_device}: "
-                             "move the batch (batch.to(device)) first")
         types_onehot = F.one_hot(batch.type.long(), NUM_CLASSES).float() * mask[..., None]
         planes = build_planes(mask, batch.gid, batch.grid_shape)
 
@@ -108,3 +119,44 @@ def make_train_step(cfg: Configuration, state: TrainState) -> Callable:
         }
 
     return train_step
+
+
+def make_eval_step(cfg: Configuration, state: TrainState) -> Callable:
+    """Build ``eval_step(batch, generator) -> metrics`` over ``state``: no update.
+
+    z and the Gumbel noise are drawn from ``generator`` (z first), unless given
+    as ``z`` (B, F, Y, X, Z_DIM) and ``gumbel_noise`` (B, F, Y, X, 7).  The
+    generator's packed hourglass weights are cached until ``state.step``
+    moves.  Returns the G loss and its terms, the batch scores, the per-graph
+    F1 and its histogram and the confusion matrix, as tensors on the batch's
+    device.
+    """
+    cfg.require_float32("make_eval_step")
+    gen, disc = state.generator, state.discriminator
+    model_device = next(gen.parameters()).device
+    packed = {"step": None}
+
+    def weights():
+        if packed["step"] != state.step:
+            packed["weights"] = fast_infer.prepare(gen, cfg)
+            packed["step"] = state.step
+        return packed["weights"]
+
+    @torch.no_grad()
+    def eval_step(batch, generator: torch.Generator | None = None, *, z=None,
+                  gumbel_noise=None) -> dict:
+        _check_device(batch, model_device)
+        mask = batch.mask
+        if z is None:
+            z = normal_box_muller(tuple(mask.shape) + (cfg.Z_DIM,), generator)
+        logits, label_hard, _ = fast_infer.infer(gen, weights(), batch, z, gumbel_noise, generator)
+        g_loss, aux = L.generator_loss(
+            lambda label: FT.discriminator_apply_fused(disc, cfg, batch, label, deterministic=True),
+            batch, logits, label_hard, cfg,
+        )
+        m = M.compute_metrics(batch.type, label_hard.argmax(-1), mask, batch.graph_mask,
+                              gid=batch.gid, num_graphs_per_slot=batch.graphs_per_slot)
+        return {"g_loss": g_loss, **aux, **{k: m[k] for k in METRIC_KEYS},
+                "per_graph_f1": m["per_graph_f1"]}
+
+    return eval_step

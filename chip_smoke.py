@@ -35,15 +35,32 @@ Phases, one short output line or a few each:
   7. the training main path: 512 real-scale synthetic buildings packed at
      K=6 ("cell" mode), random weights from a seed, 3 WGAN-GP train steps
      (N_CRITIC=5, f32) through train/step.py; losses and metrics finite,
-     150 forward and 80 backward layer launches a step; each step's peak
-     device memory;
+     150 forward and 80 backward layer launches a step, and 30 launches of
+     the Philox dropout-byte kernel (the plain gradient-penalty critic
+     pass's masks, one a critic layer); each step's peak device memory;
+     those masks held bit for bit against ops/dropout.py::keep_mask at the
+     step's critic shapes, and the step timed in turns with keep_mask's int64
+     Philox patched back into that pass (as before the port drew those masks
+     on the card) and with the kernel;
   8. train-step time and nodes/s, and the stacks' forward and backward
      kernels against their plain versions and their bounds, at the step's
      shapes and trained weights (the kernel stacks also held against the
      plain stacks in f64 there); each stack's device time by sub-kernel
-     (torch.profiler) and each layer's forward and backward time;
-  9. a {"kernels": [...]} line;
-  10. the server stopped, every thread joined, and the result line last.
+     (torch.profiler) and each layer's forward and backward time; the step
+     traced with the int64 masks and with the kernel: the int64 kernels must
+     be gone from the kernel path's trace;
+  9. the trainer: 256 real-scale buildings as raw JSON, then the CLI in
+     subprocesses on the card (preprocess; train 2 epochs at the config of
+     record with a latest checkpoint each epoch; train again to 3 epochs,
+     which resumes from the latest checkpoint; test); checkpoints, metas and
+     scalar tags checked; then in process a Trainer on that log dir: one eval
+     step and Trainer.generate with their kernel launches counted, generate's
+     logits against the plain generator's, one train and one validation
+     epoch with their host syncs counted (torch.cuda.set_sync_debug_mode),
+     seconds an epoch, ms an eval batch, checkpoint write and resume seconds,
+     and the eval step's peak device memory;
+  10. a {"kernels": [...]} line;
+  11. the server stopped, every thread joined, and the result line last.
 
 Every kernel is held against its plain version run in float64, the gradients
 too, by two rules: its max abs error within 4x the plain float32 version's own,
@@ -425,13 +442,14 @@ def train_phase(cfg, batch, dev):
     step = make_train_step(cfg, state)
     gen = torch.Generator(device=dev).manual_seed(0)
     Lg, Ld = len(state.generator.encoder.channels), len(state.discriminator.encoder.channels)
-    want = (cfg.N_CRITIC * (Lg + 2 * Ld) + Lg + Ld, cfg.N_CRITIC * 2 * Ld + Ld + Lg)
+    # forward and backward layer launches, and the GP pass's dropout-byte draws (one a critic layer)
+    want = (cfg.N_CRITIC * (Lg + 2 * Ld) + Lg + Ld, cfg.N_CRITIC * 2 * Ld + Ld + Lg, cfg.N_CRITIC * Ld)
     step_ms = []
-    for c in (gt.fwd_launches, gt.bwd_launches, hg.launches):
+    for c in (gt.fwd_launches, gt.bwd_launches, gt.bytes_launches, hg.launches):
         c.reset()
     peak = []
     for i in range(TRAIN_STEPS):
-        f0, b0 = gt.fwd_launches.value, gt.bwd_launches.value
+        f0, b0, d0 = gt.fwd_launches.value, gt.bwd_launches.value, gt.bytes_launches.value
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         t = time.perf_counter()
@@ -439,19 +457,19 @@ def train_phase(cfg, batch, dev):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
         peak.append(torch.cuda.max_memory_allocated(dev) / 2**30)
-        got = (gt.fwd_launches.value - f0, gt.bwd_launches.value - b0)
+        got = (gt.fwd_launches.value - f0, gt.bwd_launches.value - b0, gt.bytes_launches.value - d0)
         bad = [k for k, v in m.items() if not torch.isfinite(v).all().item()]
         say(f"train step {i + 1}: {step_ms[-1]:.1f} ms, g_loss {m['g_loss'].item():.5f}, "
             f"d_loss {m['d_loss'].item():.5f}, f1 {m['f1'].item():.4f}, f1_min {m['f1_min'].item():.4f}, "
-            f"accuracy {m['accuracy'].item():.4f}; layer launches fwd {got[0]} bwd {got[1]} "
-            f"(expect {want[0]} / {want[1]}); peak device memory {peak[-1]:.3f} GiB "
-            "(torch.cuda.max_memory_allocated)")
+            f"accuracy {m['accuracy'].item():.4f}; layer launches fwd {got[0]} bwd {got[1]}, "
+            f"dropout-byte launches {got[2]} (expect {want[0]} / {want[1]} / {want[2]}); peak device "
+            f"memory {peak[-1]:.3f} GiB (torch.cuda.max_memory_allocated)")
         if bad:
             raise AssertionError(f"train step {i + 1}: non-finite {bad}")
         if got != want:
             raise AssertionError(f"train step {i + 1}: {got} layer launches, expected {want}")
     launches = (gt.fwd_launches.value, gt.bwd_launches.value)
-    if min(launches) < 1:
+    if min(launches + (gt.bytes_launches.value,)) < 1:
         raise AssertionError("the train path never launched a gat_train kernel")
     return state, step_ms, launches
 
@@ -698,6 +716,368 @@ def profile_step(step, batch, dev):
     busy = sum(v for _, v in rows)
     ours = sum(v for k, v in rows if any(f"{n}(" in k or f"{n}<" in k for n in GAT_TRAIN_KERNELS))
     return ms, (busy if busy > 0 else None), ours, rows
+
+
+def int64_philox_ms(rows) -> float:
+    """Device ms of the int64 bitwise / shift kernels in a trace: ops/dropout.py::keep_mask's
+    Philox arithmetic (no other op of the step does int64 bit arithmetic)."""
+    return sum(v for k, v in rows if "long" in k and ("Bitwise" in k or "shift" in k))
+
+
+def int64_elementwise_ms(rows) -> float:
+    """Device ms of every int64 elementwise kernel in a trace: keep_mask's Philox adds and
+    multiplies too, and the little index arithmetic of the pooling and metrics."""
+    return sum(v for k, v in rows if "<long" in k and "elementwise" in k)
+
+
+def _int64_keep(shape, key, levels, width, device):
+    """The GP pass's mask as before the repair: keep_mask's int64 Philox, on the card."""
+    from building_gan_torch.ops import dropout as drop
+
+    return drop.keep_mask(shape, key, levels, width, device)
+
+
+def repair_check(state, cfg, batch, dev, card):
+    """The GP pass's dropout masks come from the Philox kernel, bit-equal to keep_mask.
+
+    One critic layer's mask at the step's shapes; then the step timed in turns
+    with keep_mask's int64 Philox patched back into that pass (as before the
+    repair) and with the kernel, before any profiler has run in this process.
+    Returns {"int64": [ms, ms], "kernel": [ms, ms]}.
+    """
+    import math
+
+    from building_gan_torch.ops import dropout as drop
+    from building_gan_torch.train.step import make_train_step
+
+    B, R, C = batch.mask.shape[0], math.prod(batch.grid_shape), cfg.DISCRIMINATOR_HIDDEN_DIM
+    levels = drop.drop_levels(cfg.ENCODER_DROPOUT_RATE)
+    key = drop.draw_keys(1, torch.Generator(device=dev).manual_seed(8))[0]
+    kept = drop.dropout(torch.ones(B, R, C, device=dev), key, cfg.ENCODER_DROPOUT_RATE, width=C) != 0
+    same = torch.equal(kept, drop.keep_mask((B, R, C), key, levels, C, dev))
+    say(f"repair: GP-pass dropout mask of one critic layer ({B} x {R} x {C}) from the Philox kernel "
+        f"== keep_mask bit for bit: {same} ({kept.float().mean().item():.4f} kept)")
+    if not same:
+        raise AssertionError("the GP pass's dropout mask differs from keep_mask's")
+
+    kernel_keep = drop._keep
+    step = make_train_step(cfg, state)
+    g = torch.Generator(device=dev).manual_seed(9)
+    times = {"int64": [], "kernel": []}
+    try:
+        for which in ("int64", "kernel", "kernel", "int64"):
+            drop._keep = _int64_keep if which == "int64" else kernel_keep
+            times[which].append(wall_ms(lambda: step(batch, g))[1])
+    finally:
+        drop._keep = kernel_keep
+    say(f"repair: step ms in turns (int64, kernel, kernel, int64): {times['int64'][0]:.1f}, "
+        f"{times['kernel'][0]:.1f}, {times['kernel'][1]:.1f}, {times['int64'][1]:.1f} on {card} "
+        "(host clock; recorded, not claimed)")
+    return times
+
+
+def repair_trace(state, cfg, batch, dev, kernel_trace):
+    """The step traced with keep_mask's int64 Philox in the GP pass, beside
+    ``kernel_trace`` (profile_step's result for the kernel path): the int64
+    kernels must be gone from the kernel path's trace."""
+    from building_gan_torch.ops import dropout as drop
+    from building_gan_torch.train.step import make_train_step
+
+    kernel_keep = drop._keep
+    drop._keep = _int64_keep
+    try:
+        int64_trace = profile_step(make_train_step(cfg, state), batch, dev)
+    finally:
+        drop._keep = kernel_keep
+    for label, (ms, busy, _, rows) in (("before the repair (keep_mask's int64 Philox in the GP pass)",
+                                        int64_trace), ("after (the Philox kernel)", kernel_trace)):
+        busy_s = "not measured" if busy is None else f"{busy:.1f} ms"
+        say(f"repair: step traced {label}: wall {ms:.1f} ms, device busy {busy_s}, int64 bitwise "
+            f"and shift kernels {int64_philox_ms(rows):.1f} ms, all int64 elementwise kernels "
+            f"{int64_elementwise_ms(rows):.1f} ms; top device kernels:")
+        for name, v in rows[:8]:
+            say(f"  device {v:8.2f} ms  {name[:110]}")
+    if kernel_trace[3] and int64_philox_ms(kernel_trace[3]) > 0:
+        raise AssertionError("the train step's trace still shows keep_mask's int64 kernels")
+    if int64_trace[3] and int64_philox_ms(int64_trace[3]) <= 0:
+        raise AssertionError("the int64 Philox kernels were not found in the trace of the int64 path")
+
+
+# The trainer phase: the CLI on the card over real-scale buildings (cut from
+# the 512 of the step phases to keep the phase near 90 s), then a Trainer in process.
+TRAINER_BUILDINGS, TRAINER_SLOT_GRAPHS, TRAINER_BATCH_IN_PROCESS = 256, 6, 16
+META_KEYS = ("epoch_start", "epoch_end", "best_f1_score", "f1_score_train", "f1_score_validation",
+             "f1_score_min_train", "f1_score_min_validation", "f1_score_min_weightedsum",
+             "recall_score_train", "recall_score_validation", "accuracy_score_train",
+             "accuracy_score_validation")
+LATEST_META_KEYS = ("epoch_start", "epoch_end", "best_f1_score", "is_latest")
+REFERENCE_TAGS = (
+    "g_loss_train", "d_loss_train", "g_loss_validation", "f1_score_train", "f1_score_validation",
+    "f1_score_min_train", "f1_score_min_validation", "f1_score_min_weightedsum",
+    "precision_score_train", "precision_score_validation", "recall_score_train",
+    "recall_score_validation", "accuracy_score_train", "accuracy_score_validation",
+)
+TEST_METRICS = ("f1_score_test", "f1_score_min_test", "precision_score_test", "recall_score_test",
+                "accuracy_score_test")
+
+
+def write_raw(root, n):
+    """n real-scale buildings (seeds 0..n-1) as raw JSON in the reference layout (as
+    data/synthetic.py::write_dataset lays it out); -> the most program nodes of one."""
+    import os
+
+    from building_gan_torch.data import generate_building_real_scale
+
+    layout = (("global_graph_data", "graph_global_{:06d}.json"),
+              ("local_graph_data", "graph_local_{:06d}.json"), ("voxel_data", "voxel_{:06d}.json"))
+    for sub, _ in layout:
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    max_local = 0
+    for i in range(n):
+        parts = generate_building_real_scale(i)
+        max_local = max(max_local, len(parts[1]["node"]))
+        for (sub, fmt), payload in zip(layout, parts):
+            with open(os.path.join(root, sub, fmt.format(i)), "w") as f:
+                json.dump(payload, f)
+    return max_local
+
+
+def run_cli(args, label, timeout_s=600):
+    """``python -m building_gan_torch.cli.main *args`` in a subprocess from the repo root,
+    with this tree first on PYTHONPATH; raises with its output's tail on failure."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "building_gan_torch.cli.main", *args], cwd=here,
+                          env=env, capture_output=True, text=True, timeout=timeout_s)
+    seconds = time.perf_counter() - t
+    if proc.returncode != 0:
+        say(proc.stdout[-3000:])
+        say(proc.stderr[-3000:])
+        raise AssertionError(f"CLI {label} exited {proc.returncode}")
+    return proc.stdout, seconds
+
+
+def count_syncs(fn):
+    """(fn(), synchronizing CUDA calls it made, {python location: count}) with
+    torch.cuda.set_sync_debug_mode("warn") around it."""
+    import warnings
+    from collections import Counter
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    import linecache
+
+    def source(w):
+        return linecache.getline(w.filename, w.lineno).strip()
+
+    # the mode switch itself can be reported once, at torch's own set call: not the work's
+    syncs = [w for w in caught if "synchroniz" in str(w.message)
+             and "set_sync_debug_mode" not in source(w)]
+    return out, len(syncs), Counter(
+        f"{'/'.join(w.filename.split('/')[-2:])}:{w.lineno} ({source(w)[:60]})" for w in syncs)
+
+
+def epoch_lines(out):
+    """{epoch: {name: value}} from the trainer's "epoch N: g_loss=... f1=a/b ..." lines."""
+    import re
+
+    got = {}
+    for ln in out.splitlines():
+        m = re.match(r"epoch (\d+): (.*)", ln)
+        if m:
+            vals = {}
+            for k, v in re.findall(r"(\w+)=(\S+)", m.group(2)):
+                for tag, x in zip(("train", "validation"), v.split("/")):
+                    vals[f"{k}_{tag}" if "/" in v else k] = float(x)
+            got[int(m.group(1))] = vals
+    return got
+
+
+def trainer_phase(dev, card):
+    """The trainer slice on the card: the CLI in subprocesses, then a Trainer in process.
+
+    Returns {kernel: launches} of the in-process trainer path (eval step,
+    generate, one train and one validation epoch)."""
+    import math
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    from building_gan_torch.checkpoint import ckpt
+    from building_gan_torch.config import Configuration
+    from building_gan_torch.data.pipeline import GraphDataLoaders
+    from building_gan_torch.models.grid_models import GridVoxelGNNDiscriminator, GridVoxelGNNGenerator
+    from building_gan_torch.ops import gat_train as gt
+    from building_gan_torch.ops import hourglass as hg
+    from building_gan_torch.ops.rng import normal_box_muller
+    from building_gan_torch.train.trainer import Trainer
+    from building_gan_torch.train.writer import JSONL_FILE, read_jsonl
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="bgt_trainer_")
+    try:
+        raw, npz, run = (os.path.join(root, d) for d in ("raw", "npz", "run"))
+        max_local = write_raw(raw, TRAINER_BUILDINGS)
+        local_nodes = int(math.ceil(TRAINER_SLOT_GRAPHS * max_local / 64.0)) * 64
+        out, s_pre = run_cli(["preprocess", "--data-path", raw, "--save-data-path", npz], "preprocess")
+        say(f"trainer: {TRAINER_BUILDINGS} real-scale buildings written as JSON; CLI preprocess "
+            f"{s_pre:.1f} s: {out.strip().splitlines()[-1]}")
+        common = ["--save-data-path", npz, "--log-dir", run, "--device", "cuda", "--compute-dtype",
+                  "float32", "--slot-graphs", str(TRAINER_SLOT_GRAPHS), "--grid-local-nodes",
+                  str(local_nodes), "--ckpt-latest-interval", "1"]
+
+        out, s_train = run_cli(["train", "--epochs", "2"] + common, "train --epochs 2")
+        epochs = epoch_lines(out)
+        times = [(f, float(x)) for f, x in re.findall(r"function (\w+) took ([\d.e-]+) seconds", out)]
+        writer_line = next((ln for ln in out.splitlines() if ln.startswith("Scalar log:")), "")
+        say(f"trainer: CLI train --epochs 2 {s_train:.1f} s (process included); {writer_line}")
+        for e, vals in sorted(epochs.items()):
+            say(f"trainer: epoch {e}: " + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()))
+        if sorted(epochs) != [1, 2]:
+            raise AssertionError(f"train ran epochs {sorted(epochs)}, expected [1, 2]")
+        if not all(np.isfinite(v) for vals in epochs.values() for v in vals.values()):
+            raise AssertionError("a loss or score of the CLI's training is not finite")
+        for f, m, keys in ((ckpt.STATE_FILE, ckpt.META_FILE, META_KEYS),
+                           (ckpt.LATEST_STATE_FILE, ckpt.LATEST_META_FILE, LATEST_META_KEYS)):
+            meta = ckpt.read_meta(run, f, m)
+            if meta is None or set(meta) != set(keys):
+                raise AssertionError(f"{f} / {m}: meta {meta}, expected the keys {keys}")
+        if os.path.exists(os.path.join(run, JSONL_FILE)):
+            scalars = {(r["tag"], r["step"]) for r in read_jsonl(run) if r["kind"] == "scalar"}
+            missing = [(t, e) for t in REFERENCE_TAGS for e in (1, 2) if (t, e) not in scalars]
+        else:  # tensorboardX's event file: the tags are in its bytes
+            blob = b"".join(open(os.path.join(run, f), "rb").read() for f in os.listdir(run)
+                            if f.startswith("events.out.tfevents"))
+            missing = [t for t in REFERENCE_TAGS if t.encode() not in blob]
+        if missing:
+            raise AssertionError(f"scalar log lacks {missing[:5]}")
+        step2 = torch.load(os.path.join(run, ckpt.LATEST_STATE_FILE), weights_only=True)["step"]
+        say(f"trainer: states.pt, states_latest.pt and both metas written with the JAX package's "
+            f"keys; the 14 reference tags logged for epochs 1-2; step count {step2}")
+
+        out, s_resume = run_cli(["train", "--epochs", "3"] + common, "train --epochs 3")
+        epochs = epoch_lines(out)
+        step3 = torch.load(os.path.join(run, ckpt.LATEST_STATE_FILE), weights_only=True)["step"]
+        resumed = "Loaded latest states" in out
+        say(f"trainer: CLI train --epochs 3 {s_resume:.1f} s: resumed from the latest states: "
+            f"{resumed}; ran epochs {sorted(epochs)}; step count {step2} -> {step3}")
+        times += [(f, float(x)) for f, x in re.findall(r"function (\w+) took ([\d.e-]+) seconds", out)]
+        if not resumed or sorted(epochs) != [3] or step3 != step2 + step2 // 2:
+            raise AssertionError("the resumed run did not continue from the latest checkpoint")
+
+        out, s_test = run_cli(["test"] + common, "test")
+        test = {k: float(v) for k, v in re.findall(r"(\w+_test): (\S+)", out)}
+        say(f"trainer: CLI test {s_test:.1f} s: " + ", ".join(f"{k} {v:.4f}" for k, v in test.items()))
+        if set(test) != set(TEST_METRICS) or not all(np.isfinite(v) for v in test.values()):
+            raise AssertionError(f"test printed {test}")
+        for f in ("_train_each_epoch", "_validate_each_epoch"):
+            ts = [x for g, x in times if g == f]
+            say(f"trainer: {f} seconds (CLI runs, epochs 1-3, the first pays the set-up): "
+                + ", ".join(f"{x:.3f}" for x in ts) + f" on {card}")
+
+        # in process, on the same log dir: kernel launches, syncs, times, memory
+        cfg = Configuration(SAVE_DATA_PATH=npz, COMPUTE_DTYPE="float32", EPOCHS=3,
+                            GRID_SLOT_GRAPHS=TRAINER_SLOT_GRAPHS, GRID_LOCAL_NODES=local_nodes,
+                            GRID_BATCH=TRAINER_BATCH_IN_PROCESS)
+        torch.manual_seed(cfg.SEED)
+        trainer = Trainer(GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg),
+                          GraphDataLoaders(cfg), cfg, log_dir=run, device=dev)
+        Ld = len(trainer.discriminator.encoder.channels)
+        batch = next(iter(trainer.dataloaders.test_dataloader)).to(dev)
+        counters = {"hourglass_fwd": hg.launches, "gat_train_fwd": gt.fwd_launches,
+                    "gat_train_bwd": gt.bwd_launches, "dropout_bytes": gt.bytes_launches}
+        for c in counters.values():
+            c.reset()
+        g = torch.Generator(device=dev).manual_seed(3)
+        logits, hard, _ = trainer.generate(batch, g)
+        torch.cuda.synchronize()
+        gen_launches = (hg.launches.value, gt.fwd_launches.value)
+        g = torch.Generator(device=dev).manual_seed(3)
+        z = normal_box_muller(tuple(batch.mask.shape) + (cfg.Z_DIM,), g)
+        with torch.no_grad():
+            plain, plain_hard, _ = trainer.generator(batch, z, generator=g)
+        lerr = (logits - plain).abs().max().item()
+        real = batch.mask > 0
+        agree = (hard.argmax(-1) == plain_hard.argmax(-1))[real].float().mean().item()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        metrics = trainer.eval_step(batch, torch.Generator(device=dev).manual_seed(4))
+        torch.cuda.synchronize()
+        eval_peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        eval_launches = (hg.launches.value - gen_launches[0], gt.fwd_launches.value - gen_launches[1])
+        say(f"trainer: Trainer.generate on a test batch ({batch.mask.shape[0]} slots): launches "
+            f"hourglass {gen_launches[0]}, training forward {gen_launches[1]}; logits vs the plain "
+            f"generator's max abs {lerr:.3e} (tol {LOGITS_ATOL}), labels equal on {100 * agree:.3f}% "
+            "of real cells")
+        say(f"trainer: one eval step: launches hourglass {eval_launches[0]}, training forward "
+            f"{eval_launches[1]} (expect 1 and {Ld}); g_loss {metrics['g_loss'].item():.5f}, f1 "
+            f"{metrics['f1'].item():.4f}; peak device memory above the start {eval_peak:.3f} GiB")
+        if gen_launches != (1, 0) or eval_launches != (1, Ld):
+            raise AssertionError("the eval path did not launch the kernels as expected")
+        if not (np.isfinite(lerr) and lerr <= LOGITS_ATOL):
+            raise AssertionError("Trainer.generate's logits disagree with the plain generator's")
+        if not all(torch.isfinite(v).all().item() for v in metrics.values()):
+            raise AssertionError("the eval step's metrics are not finite")
+        # what an autograd-recording fused critic keeps, against the eval step's no_grad pass
+        from building_gan_torch.models import fast_train as FT
+
+        label = torch.nn.functional.one_hot(batch.type.long(), 7).float()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        with torch.enable_grad():
+            scores = FT.discriminator_apply_fused(trainer.discriminator, cfg, batch, label,
+                                                  deterministic=True)
+            kept = (torch.cuda.memory_allocated(dev) - base) / 2**30
+        del scores
+        say(f"trainer: the fused critic forward with autograd on keeps {kept:.3f} GiB for its "
+            "backward; the eval step (no_grad) keeps none of it: its peak above is one layer's")
+
+        ms_eval = timed_ms(lambda: trainer.eval_step(batch, g), 5)
+        say(f"trainer: eval step {ms_eval:.2f} ms a batch of {batch.mask.shape[0]} slots "
+            f"(CUDA events, 5 calls) on {card}")
+
+        n_val = trainer.dataloaders.validation_dataloader.num_packs_per_epoch()
+        n_train = trainer.dataloaders.train_dataloader.num_packs_per_epoch()
+        t = time.perf_counter()
+        _, syncs_val, where_val = count_syncs(lambda: trainer._validate_each_epoch(3))
+        s_val = time.perf_counter() - t
+        t = time.perf_counter()
+        _, syncs_tr, where_tr = count_syncs(lambda: trainer._train_each_epoch(3))
+        s_tr = time.perf_counter() - t
+        say(f"trainer: host syncs an epoch (torch.cuda.set_sync_debug_mode): train {syncs_tr} over "
+            f"{n_train} batches {dict(where_tr.most_common(4))}, validation {syncs_val} over {n_val} "
+            f"batches {dict(where_val.most_common(4))}; seconds an epoch here (GRID_BATCH "
+            f"{TRAINER_BATCH_IN_PROCESS}): train {s_tr:.2f}, validation {s_val:.2f} on {card}")
+
+        save_dir = os.path.join(root, "ckpt_timing")
+        t = time.perf_counter()
+        ckpt.save_latest(save_dir, trainer.state, {"epoch_start": 4})
+        s_save = time.perf_counter() - t
+        t = time.perf_counter()
+        ckpt.load_latest(save_dir, trainer.state, map_location=dev)
+        torch.cuda.synchronize()
+        s_load = time.perf_counter() - t
+        size = os.path.getsize(os.path.join(save_dir, ckpt.LATEST_STATE_FILE)) / 2**20
+        say(f"trainer: checkpoint write {s_save:.3f} s, resume (load onto the card) {s_load:.3f} s, "
+            f"{size:.1f} MiB")
+        launches = {k: c.value for k, c in counters.items()}
+        say(f"trainer: launches on the in-process trainer path {launches}")
+        if min(launches.values()) < 1:
+            raise AssertionError(f"a kernel of the trainer path was never launched: {launches}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say(f"phase: trainer {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def serving_inputs(dev):
@@ -1036,6 +1416,12 @@ def main() -> int:
     say(f"phase: train steps {time.perf_counter() - t_phase:.1f} s; launches fwd {fwd_launches} "
         f"bwd {bwd_launches}")
 
+    # 7b. the repair: the GP pass's dropout masks from the Philox kernel, and the
+    # step in turns with the int64 masks (before any profiler runs here)
+    t_phase = time.perf_counter()
+    repair_check(state, cfg_t, batch_t, dev, card)
+    say(f"phase: repair check {time.perf_counter() - t_phase:.1f} s")
+
     # 8. the stacks timed at the step's shapes
     t_phase = time.perf_counter()
     stacks, (fwd_err2, bwd_err2) = time_train_stacks(state, batch_t, dev, card)
@@ -1052,7 +1438,8 @@ def main() -> int:
         say(f"  {k}: {v:.2f} ms")
     say(f"  sum: {cfg_t.N_CRITIC} x critic update {crit:.2f} + G update {gupd:.2f} = "
         f"{cfg_t.N_CRITIC * crit + gupd:.2f} ms (measured step {step_s * 1e3:.1f} ms)")
-    prof_ms, busy_ms, ours_ms, top = profile_step(make_train_step(cfg_t, state), batch_t, dev)
+    kernel_trace = profile_step(make_train_step(cfg_t, state), batch_t, dev)
+    prof_ms, busy_ms, ours_ms, top = kernel_trace
     if busy_ms is None:
         say("train step trace: the profiler shows no device time; device busy share not measured")
     else:
@@ -1061,9 +1448,16 @@ def main() -> int:
             f"gat_train kernels {ours_ms:.1f} ms ({100 * ours_ms / busy_ms:.1f}% of busy)")
         for name, v in top[:15]:
             say(f"  device {v:8.2f} ms  {name[:110]}")
-    say(f"phase: train breakdown and trace {time.perf_counter() - t_phase:.1f} s")
 
-    # 9. kernels line: the training kernels' times are one generator stack
+    repair_trace(state, cfg_t, batch_t, dev, kernel_trace)
+    say(f"phase: train breakdown and traces {time.perf_counter() - t_phase:.1f} s")
+    del state
+    torch.cuda.empty_cache()
+
+    # 9. the trainer slice: CLI subprocesses on the card, then a Trainer in process
+    trainer_phase(dev, card)
+
+    # 10. kernels line: the training kernels' times are one generator stack
     # (14 layer launches) at the step's shapes
     gen_t = stacks["generator"]
     kernels = [{
@@ -1086,7 +1480,7 @@ def main() -> int:
         })
     say(json.dumps({"kernels": kernels}))
 
-    # 10. result line, last
+    # 11. result line, last
     if server._thread.is_alive() or any(th.is_alive() for th in threads):
         raise AssertionError("a server or client thread is still running")
     say(json.dumps({"ok": True, "device": {

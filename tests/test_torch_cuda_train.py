@@ -15,6 +15,8 @@ version's, plus 1e-4, which a few cells where rounding flips a ReLU barely
 move and a missing term fails.  Whole stacks and each layer alone.
 """
 
+import os
+
 import pytest
 import torch
 
@@ -24,6 +26,7 @@ from building_gan_torch.models.grid_models import GridVoxelGNNDiscriminator, Gri
 from building_gan_torch.ops import dropout as drop
 from building_gan_torch.ops import gat_train as gt
 from building_gan_torch.ops.hourglass import hourglass_channel_pairs
+from building_gan_torch.ops.rng import normal_box_muller
 from building_gan_torch.train.state import create_train_state
 from building_gan_torch.train.step import make_train_step
 
@@ -184,11 +187,104 @@ def test_train_step_launches_both_kernels(cuda_device):
     state = create_train_state(cfg, GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg))
     assert next(state.generator.parameters()).is_cuda  # the card is the default
     step = make_train_step(cfg, state)
-    f0, b0 = gt.fwd_launches.value, gt.bwd_launches.value
+    f0, b0, d0 = gt.fwd_launches.value, gt.bwd_launches.value, gt.bytes_launches.value
     metrics = step(batch, torch.Generator(device=cuda_device).manual_seed(0))
     torch.cuda.synchronize()
     Lg = Ld = 4
     assert gt.fwd_launches.value - f0 == cfg.N_CRITIC * (Lg + 2 * Ld) + Lg + Ld
     assert gt.bwd_launches.value - b0 == cfg.N_CRITIC * 2 * Ld + Ld + Lg
+    # the plain GP critic pass draws its dropout bytes with the Philox kernel
+    assert gt.bytes_launches.value - d0 == cfg.N_CRITIC * Ld
     for k, v in metrics.items():
         assert torch.isfinite(v).all(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,width", [(64, 64), (16, 64), (1, 128)])
+def test_gp_dropout_masks_from_the_kernel_match_keep_mask(C, width, cuda_device):
+    B, R = 3, GRID[0] * GRID[1] * GRID[2]
+    gen = torch.Generator(device=cuda_device).manual_seed(C)
+    keys = drop.draw_keys(4, gen)
+    levels = drop.drop_levels(0.2)
+    x = torch.ones(B, R, C, device=cuda_device)
+    for key in keys:
+        before = gt.bytes_launches.value
+        kept = drop.dropout(x, key, 0.2, width=width) != 0
+        assert gt.bytes_launches.value == before + 1
+        assert torch.equal(kept, drop.keep_mask((B, R, C), key, levels, width, cuda_device))
+        assert torch.equal(drop.dropout(x.cpu(), key.cpu(), 0.2, width=width) != 0, kept.cpu())
+
+
+def _tiny_trainer(tmp_path, dev, **kw):
+    from building_gan_torch.data import write_dataset
+    from building_gan_torch.data.pipeline import GraphDataLoaders
+    from building_gan_torch.data.preprocess import create_dataset
+    from building_gan_torch.train.trainer import Trainer
+
+    cfg = Configuration(
+        COMPUTE_DTYPE="float32", GRID_SHAPE=(10, 8, 8), GRID_BATCH=4, GRID_SLOT_GRAPHS=3,
+        GRID_PACK_MODE="cell", GRID_LOCAL_NODES=128, N_CRITIC=2, EPOCHS=1,
+        DATA_PATH=str(tmp_path / "raw"), SAVE_DATA_PATH=str(tmp_path / "npz"), **kw,
+    )
+    if not os.path.exists(cfg.SAVE_DATA_PATH):
+        write_dataset(cfg.DATA_PATH, 16, seed=5)
+        create_dataset(cfg, verbose=False)
+    torch.manual_seed(0)
+    return Trainer(GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg), GraphDataLoaders(cfg),
+                   cfg, log_dir=str(tmp_path / "run"), device=dev)
+
+
+@pytest.mark.cuda
+def test_eval_step_and_generate_launch_the_kernels(tmp_path, cuda_device):
+    from building_gan_torch.ops import hourglass as hg
+
+    trainer = _tiny_trainer(tmp_path, cuda_device)  # the config of record's widths
+    batch = next(iter(trainer.dataloaders.validation_dataloader)).to(cuda_device)
+    Ld = len(trainer.discriminator.encoder.channels)
+    h0, f0 = hg.launches.value, gt.fwd_launches.value
+    metrics = trainer.eval_step(batch, torch.Generator(device=cuda_device).manual_seed(1))
+    torch.cuda.synchronize()
+    assert (hg.launches.value - h0, gt.fwd_launches.value - f0) == (1, Ld)
+    for k, v in metrics.items():
+        assert torch.isfinite(v).all(), k
+    h0, f0 = hg.launches.value, gt.fwd_launches.value
+    logits, hard, _ = trainer.generate(batch, torch.Generator(device=cuda_device).manual_seed(2))
+    torch.cuda.synchronize()
+    assert (hg.launches.value - h0, gt.fwd_launches.value - f0) == (1, 0)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    z = normal_box_muller(tuple(batch.mask.shape) + (trainer.configuration.Z_DIM,), g)
+    with torch.no_grad():
+        plain, _, _ = trainer.generator(batch, z, generator=g)
+    assert (logits - plain).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_checkpoint_written_on_the_card_loads_on_the_cpu(tmp_path, cuda_device):
+    from building_gan_torch.checkpoint import ckpt
+
+    trainer = _tiny_trainer(tmp_path, cuda_device, GENERATOR_HIDDEN_DIM=32, DISCRIMINATOR_HIDDEN_DIM=32,
+                            LOCAL_ENCODER_HIDDEN_DIM=32, Z_DIM=16)
+    batch = next(iter(trainer.dataloaders.train_dataloader)).to(cuda_device)
+    trainer.train_step(batch, torch.Generator(device=cuda_device).manual_seed(0))
+    ckpt.save_states(trainer.log_dir, trainer.state, {"epoch_start": 1})
+    cpu = _tiny_trainer(tmp_path, "cpu", GENERATOR_HIDDEN_DIM=32, DISCRIMINATOR_HIDDEN_DIM=32,
+                        LOCAL_ENCODER_HIDDEN_DIM=32, Z_DIM=16)
+    assert cpu.state.step == 1
+    for name in ("generator", "discriminator", "opt_g", "opt_d"):
+        want, got = getattr(trainer.state, name).state_dict(), getattr(cpu.state, name).state_dict()
+        pairs = list(zip(_tensors(want), _tensors(got)))
+        assert pairs
+        for a, b in pairs:
+            assert b.device.type == "cpu" and torch.equal(a.cpu(), b), name
+
+
+def _tensors(tree):
+    """The tensors of a state_dict, in key order."""
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree, key=str):
+            yield from _tensors(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)

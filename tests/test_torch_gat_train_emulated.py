@@ -15,7 +15,9 @@ of 1, 2 and 3 (that many channels a lane, 32 rows a warp), 4 to 64 (4 a lane,
 float4 rows, and scalar rows when co is not a multiple of 4: co = 6, 12) and
 96 and 128 (8 a lane); a slot of two row-pass chunks whose +-Y*X halo (42
 rows) is wider than the gather pass's 32-row tile.  A layer's backward run twice gives the same bits (no atomics), and
-the Philox header's bytes equal the torch Philox bit for bit.
+the Philox header's bytes equal the torch Philox bit for bit.  The source is
+built with ``-fsanitize=alignment``: a float4 or double access at an address
+the card would fault on (``misaligned address``) aborts the run.
 
 Tolerance: the forward and each gradient within 1e-4 of the largest
 magnitude of the reference (f32 sums in other orders, and FMA contraction
@@ -60,6 +62,7 @@ def emulated_lib(tmp_path_factory):
     so = d / "libgat_train_emu.so"
     subprocess.run(
         [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-Wno-unknown-pragmas",
+         "-fsanitize=alignment", "-fno-sanitize-recover=all",
          f"-I{d}", f"-I{_build.CSRC}", "-o", str(so), str(d / "gat_train_emu.cpp")],
         check=True, capture_output=True, timeout=300,
     )
@@ -105,10 +108,10 @@ def _case(rng, B, F, Y, X, hidden, repeat, K, rate):
     "B,F,Y,X,hidden,repeat,K,rate",
     [(2, 3, 5, 6, 16, 2, 1, 0.2), (2, 4, 5, 7, 16, 1, 3, 0.2), (3, 2, 9, 9, 8, 2, 1, 0.0),
      (2, 8, 6, 7, 4, 2, 2, 0.2), (2, 2, 5, 6, 128, 1, 1, 0.2), (2, 2, 5, 7, 96, 1, 4, 0.2),
-     (2, 3, 4, 5, 12, 2, 2, 0.2)],
+     (2, 3, 4, 5, 12, 2, 2, 0.2), (2, 3, 4, 5, 4, 2, 3, 0.2)],
     ids=["k1_dropout_two_tiles", "k3_dropout_three_tiles", "k1_no_dropout_odd_grid",
          "k2_co1_co2_two_chunks_wide_halo", "k1_co64_co128_vector_lanes", "k4_co48_co96_unequal_blocks",
-         "k2_co3_co6_unaligned_rows"],
+         "k2_co3_co6_unaligned_rows", "k3_co1_odd_shared_planes"],
 )
 def test_emulated_layer_matches_plain(emulated_lib, B, F, Y, X, hidden, repeat, K, rate):
     rng = np.random.default_rng(hidden + 7 * K)

@@ -2,6 +2,8 @@
 
 The machine with the card has none of them, so one such import anywhere in
 the port, even of a module that is itself numpy-only, fails there at import.
+It has no tensorboardX either, so the port imports that only inside a
+function (the trainer's writer factory), never when a module is imported.
 The walk reads the sources with ``ast``; it imports nothing.
 """
 
@@ -12,6 +14,9 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "optax", "building_gan_tpu")
+LAZY_ONLY = ("tensorboardX",)
+TRAINER_SLICE = ("data/pipeline.py", "checkpoint/ckpt.py", "train/trainer.py", "train/writer.py",
+                 "cli/main.py")
 
 
 def _sources():
@@ -21,9 +26,10 @@ def _sources():
     return out
 
 
-def _imports(path):
-    with open(path) as f:
-        tree = ast.parse(f.read(), path)
+def _imports(path, tree=None):
+    if tree is None:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
@@ -39,10 +45,32 @@ def _imports(path):
             yield str(node.args[0].value)
 
 
+def _import_time_nodes(tree):
+    """The statements a module runs when it is imported: not function bodies."""
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        yield node
+        todo.extend(ast.iter_child_nodes(node))
+
+
 def test_walk_finds_the_port():
     paths = _sources()
     assert os.path.exists(paths[0]), "chip_smoke.py is missing"
-    assert any(p.endswith(os.path.join("ops", "hourglass.py")) for p in paths)
+    for module in ("ops/hourglass.py",) + TRAINER_SLICE:
+        assert any(p.endswith(os.path.join("building_gan_torch", *module.split("/"))) for p in paths)
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_tensorboardx_is_imported_only_lazily(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    at_import = ast.Module(body=[n for n in _import_time_nodes(tree)
+                                 if isinstance(n, (ast.Import, ast.ImportFrom))], type_ignores=[])
+    bad = [m for m in _imports(path, at_import) if m.split(".")[0] in LAZY_ONLY]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad} when it is imported"
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
