@@ -8,13 +8,12 @@ trainer runs on the card unless asked for the CPU.
     python -m building_gan_torch.cli.main synth --data-path data/raw --num 100
     python -m building_gan_torch.cli.main preprocess --data-path data/raw --save-data-path data/npz
     python -m building_gan_torch.cli.main train --save-data-path data/npz --log-dir runs/a \\
-        --compute-dtype float32 --epochs 1000
-    python -m building_gan_torch.cli.main test --save-data-path data/npz --log-dir runs/a \\
-        --compute-dtype float32
+        --epochs 1000
+    python -m building_gan_torch.cli.main test --save-data-path data/npz --log-dir runs/a
 
-The port computes in float32 only, and ``COMPUTE_DTYPE`` defaults to
-bfloat16 as in the JAX package: ``train`` and ``test`` raise unless given
-``--compute-dtype float32``.  Flags for what the port does not have yet raise
+``COMPUTE_DTYPE`` defaults to bfloat16 (f32 parameters, bf16 activations), as
+in the JAX package; ``--compute-dtype float32`` computes in f32.  A checkpoint
+holds f32 parameters at either dtype.  Flags for what the port does not have yet raise
 and name the ROADMAP item that ports it; ``ingest``, ``analyze``, ``viz`` and
 ``sanity`` wait for Queue A item 8.  ``--use-pallas``, ``--device-resident``
 and ``--pack-gemms`` schedule TPU work in the JAX package; here they are
@@ -165,7 +164,7 @@ def _make_trainer(args):
 
     cfg = _build_config(args)
     _not_ported(cfg)
-    cfg.require_float32(f"building_gan_torch {args.cmd}")  # before the data loads
+    cfg.require_ported_dtype(f"building_gan_torch {args.cmd}")  # before the data loads
     loaders = GraphDataLoaders(cfg)
     torch.manual_seed(cfg.SEED)  # the models' initial weights
     gen = GridVoxelGNNGenerator(cfg)

@@ -5,7 +5,8 @@ Knobs that only schedule TPU work (``PACK_NARROW_GEMMS``, ``UNROLL_CRITIC``,
 ``REMAT_HOURGLASS``, ``PRNG_IMPL``, ``DEVICE_RESIDENT_DATA``, ...) are kept
 as fields so a run configuration maps 1:1, and are read by nothing in the
 port.  ``compute_dtype`` / ``param_dtype`` map the dtype names to torch
-dtypes.
+dtypes; ``require_ported_dtype`` refuses a COMPUTE_DTYPE the port does
+not compute in (float16).
 """
 
 from __future__ import annotations
@@ -48,6 +49,9 @@ PROGRAM_NAMES: Dict[int, str] = {
 }
 
 NUM_CLASSES = len(COLORS)  # 7
+
+# Compute dtypes the port takes (float16: ROADMAP.md Queue A).
+PORTED_DTYPES = ("float32", "bfloat16")
 
 _TORCH_DTYPES = {
     "float32": torch.float32,
@@ -213,13 +217,12 @@ class Configuration:
     def VOXEL_GRAPH_DATA_PATH(self) -> str:
         return os.path.join(self.DATA_PATH, "voxel_data")
 
-    def require_float32(self, where: str) -> None:
-        """Raise unless COMPUTE_DTYPE is "float32": the port computes in f32 only so far."""
-        if self.COMPUTE_DTYPE != "float32":
+    def require_ported_dtype(self, where: str) -> None:
+        """Raise unless COMPUTE_DTYPE is one the port computes in: "float32" or "bfloat16"."""
+        if self.COMPUTE_DTYPE not in PORTED_DTYPES:
             raise ValueError(
-                f"{where}: COMPUTE_DTYPE={self.COMPUTE_DTYPE!r} is not ported yet (bf16 and f16 "
-                'are not); the port computes in float32 only: set COMPUTE_DTYPE="float32" '
-                "(on the command line: --compute-dtype float32)"
+                f"{where}: COMPUTE_DTYPE={self.COMPUTE_DTYPE!r} is not ported; the port computes "
+                f"in {' or '.join(PORTED_DTYPES)} (on the command line: --compute-dtype)"
             )
 
     def to_dict(self) -> Dict[str, object]:

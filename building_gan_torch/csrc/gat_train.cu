@@ -1,5 +1,9 @@
 // Training GAT hourglass layer for Hopper (sm_90a), f32 on the CUDA cores
-// (no TF32): forward and backward kernels.
+// (no TF32): forward and backward kernels, with the activations x, y, gy and
+// gx stored as f32 or as bf16 (the JAX package's default COMPUTE_DTYPE; the
+// TPU kernel reads x.dtype and writes y and gx in it, its math and weight
+// grads f32).  Everything between the loads and the stores is the same in
+// both: the saved residuals, the weights and their grads stay f32.
 //
 // Replaces building_gan_tpu/ops/pallas/gat_train.py::_fwd_kernel (one layer
 // forward, reached through make_fused_layer and hourglass_train) and
@@ -78,10 +82,12 @@
 // slots does).  Out-of-range neighbours of the reverse shifts read as zero: a
 // wrapped row carries alpha = 0 in the TPU kernel's circular roll.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <mutex>
+#include <type_traits>
 
 #include "philox.cuh"
 
@@ -123,6 +129,25 @@ __device__ __forceinline__ void store8(float* dst, const float (&p)[8]) {
   *reinterpret_cast<float4*>(dst + 4) = make_float4(p[4], p[5], p[6], p[7]);
 }
 
+// Activation storage (x, y, gy, gx): float, or __nv_bfloat16 (T).  A bf16
+// value is read as the float it is and a result rounded once to the nearest
+// even bf16 when written; every sum inside stays f32 or f64.  Row vector loads
+// and stores (float2 / float4) are the f32 storage's only: bf16 rows go element
+// by element.
+template <class T>
+constexpr bool kF32 = std::is_same<T, float>::value;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <class T>
+__device__ __forceinline__ T from_float(float v) {
+  if constexpr (kF32<T>)
+    return v;
+  else
+    return __float2bfloat16_rn(v);
+}
+
 // Statistics key of a row from its planes: its gid (0 when K == 1), -1 off the mask.
 __device__ __forceinline__ int key_of(const float (&p)[8], int K) {
   if (!(p[6] > 0.f)) return -1;
@@ -153,19 +178,19 @@ __device__ __forceinline__ Lanes lanes_for(int co) {
 }
 
 // Channels c0*V .. c0*V+V-1 of a row (n of them valid; zeros beyond).  `vec`:
-// the row start is aligned to V floats (V = 2 or 4), so a whole piece loads
-// as one float2 / float4.
-template <int V>
-__device__ __forceinline__ void load_ch(const float* row, int c0, int n, bool vec, float (&o)[V]) {
+// the row start is aligned to V floats (V = 2 or 4), so a whole piece of an
+// f32 row loads as one float2 / float4.
+template <int V, class T>
+__device__ __forceinline__ void load_ch(const T* row, int c0, int n, bool vec, float (&o)[V]) {
   const int c = c0 * V;
-  if constexpr (V == 4) {
+  if constexpr (V == 4 && kF32<T>) {
     if (vec && c + 4 <= n) {
       const float4 t = *reinterpret_cast<const float4*>(row + c);
       o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
       return;
     }
   }
-  if constexpr (V == 2) {
+  if constexpr (V == 2 && kF32<T>) {
     if (vec && c + 2 <= n) {
       const float2 t = *reinterpret_cast<const float2*>(row + c);
       o[0] = t.x; o[1] = t.y;
@@ -173,19 +198,19 @@ __device__ __forceinline__ void load_ch(const float* row, int c0, int n, bool ve
     }
   }
 #pragma unroll
-  for (int j = 0; j < V; ++j) o[j] = c + j < n ? row[c + j] : 0.f;
+  for (int j = 0; j < V; ++j) o[j] = c + j < n ? to_float(row[c + j]) : 0.f;
 }
 
-template <int V>
-__device__ __forceinline__ void store_ch(float* row, int c0, int n, bool vec, const float (&o)[V]) {
+template <int V, class T>
+__device__ __forceinline__ void store_ch(T* row, int c0, int n, bool vec, const float (&o)[V]) {
   const int c = c0 * V;
-  if constexpr (V == 4) {
+  if constexpr (V == 4 && kF32<T>) {
     if (vec && c + 4 <= n) {
       *reinterpret_cast<float4*>(row + c) = make_float4(o[0], o[1], o[2], o[3]);
       return;
     }
   }
-  if constexpr (V == 2) {
+  if constexpr (V == 2 && kF32<T>) {
     if (vec && c + 2 <= n) {
       *reinterpret_cast<float2*>(row + c) = make_float2(o[0], o[1]);
       return;
@@ -193,7 +218,7 @@ __device__ __forceinline__ void store_ch(float* row, int c0, int n, bool vec, co
   }
 #pragma unroll
   for (int j = 0; j < V; ++j)
-    if (c + j < n) row[c + j] = o[j];
+    if (c + j < n) row[c + j] = from_float<T>(o[j]);
 }
 
 // A row's vector flag: its start is aligned for load_ch / store_ch.
@@ -306,11 +331,12 @@ __device__ __forceinline__ void chunk_rows(int R, int p, int P, int* rbeg, int* 
 // and walks kGemmBlockRows rows in 64-row tiles; a thread holds 4 rows x NJ
 // consecutive columns (tc * NJ ..) of each 16 NJ-column block of co, read
 // from W as one float4 (NJ = 4) or float2; the x tile is read as float4.
-// Dynamic shared memory: W (ci8 x cw) and the x tile (64 x ci8); ci8 = ci
-// rounded up to 8, cw = co rounded up to 16 NJ, zero padded.
-template <int NJ>
+// Dynamic shared memory: W (ci8 x cw) and the x tile (64 x ci8, f32 whatever
+// x's storage T); ci8 = ci rounded up to 8, cw = co rounded up to 16 NJ, zero
+// padded.
+template <int NJ, class T>
 __global__ void __launch_bounds__(kThreads)
-fwd_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
+fwd_gemm_kernel(const T* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ att, float* __restrict__ h, float* __restrict__ a_s,
                 float* __restrict__ a_d, int rows, int ci, int co, int cmax) {
   extern __shared__ __align__(16) float smem[];
@@ -323,7 +349,7 @@ fwd_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int k = i / cw, c = i % cw;
     ws[i] = k < ci && c < co ? w[(size_t)k * cmax + c] : 0.f;
   }
-  const bool x4 = ci % 4 == 0 && cmax % 4 == 0;  // x rows load as float4
+  const bool x4 = kF32<T> && ci % 4 == 0 && cmax % 4 == 0;  // x rows load as float4
   const int q8 = ci8 / 4;
   const bool h_vec = NJ > 1 && co % NJ == 0;
   const int rb = blockIdx.x * kGemmBlockRows;
@@ -334,12 +360,12 @@ fwd_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int rr = i / q8, k = 4 * (i % q8), r = r0 + rr;
       float4 v4 = make_float4(0.f, 0.f, 0.f, 0.f);
       if (r < re) {
-        const float* xr = x + (size_t)r * cmax + k;
+        const T* xr = x + (size_t)r * cmax + k;
         if (x4) {
           if (k < ci) v4 = *reinterpret_cast<const float4*>(xr);
         } else {
-          v4 = make_float4(k < ci ? xr[0] : 0.f, k + 1 < ci ? xr[1] : 0.f,
-                           k + 2 < ci ? xr[2] : 0.f, k + 3 < ci ? xr[3] : 0.f);
+          v4 = make_float4(k < ci ? to_float(xr[0]) : 0.f, k + 1 < ci ? to_float(xr[1]) : 0.f,
+                           k + 2 < ci ? to_float(xr[2]) : 0.f, k + 3 < ci ? to_float(xr[3]) : 0.f);
         }
       }
       *reinterpret_cast<float4*>(xs + rr * ci8 + k) = v4;
@@ -580,12 +606,13 @@ fwd_attend_kernel(const float* __restrict__ h, const float* __restrict__ a_s,
 // bit c0 for channel c0 * V + j.  For co <= 32 the outputs are staged and y
 // written a whole row at a time.  Grid (P, B).  Dynamic shared memory: s and
 // rstd, K x co doubles each; for co <= 32 then the chunk's outputs, rows x co.
-template <int V>
+// y in the storage T, each value rounded once; the ReLU bit is the f32 value's.
+template <int V, class T>
 __global__ void __launch_bounds__(kThreads, 4)
 fwd_apply_kernel(const float* __restrict__ v, const double* __restrict__ part,
              const float* __restrict__ cnt, const float* __restrict__ planes,
              const float* __restrict__ vec, const long long* __restrict__ key, int levels,
-             float* __restrict__ y, unsigned* __restrict__ bits, double* __restrict__ stats,
+             T* __restrict__ y, unsigned* __restrict__ bits, double* __restrict__ stats,
              float* __restrict__ nk, int R, int co, int cmax, int K, float eps) {
   extern __shared__ __align__(16) double dsmem[];
   double* sh_s = dsmem;           // [K][co]
@@ -688,15 +715,17 @@ fwd_apply_kernel(const float* __restrict__ v, const double* __restrict__ part,
       if (live && m.c0 == 0) bits[row * V + j] = word;
     }
   }
-  // y rows by a warp a row, as float4 where cmax allows: for co > 32 the
-  // padding co .. cmax (zeros), for co <= 32 the whole row, from the stage
-  // and zeros, so that no 32-byte sector of y is written in pieces
+  // y rows by a warp a row, as float4 where cmax allows (f32 storage): for
+  // co > 32 the padding co .. cmax (zeros), for co <= 32 the whole row, from
+  // the stage and zeros, so that no 32-byte sector of y is written in pieces
   const int cz = co > 32 ? co : 0;
   if (co <= 32) __syncthreads();
   for (int rr = w; rr < rend - rbeg; rr += kWarps) {
-    float* yr = y + (slot + rbeg + rr) * cmax;
+    T* yr = y + (slot + rbeg + rr) * cmax;
     const float* ys = ystage + rr * co;
-    if (cmax % 4 == 0) {
+    if constexpr (!kF32<T>) {
+      for (int c = cz + lane; c < cmax; c += 32) yr[c] = from_float<T>(c < co ? ys[c] : 0.f);
+    } else if (cmax % 4 == 0) {
       const int c4 = min(cmax, (cz + 3) & ~3);
       if (lane < c4 - cz) yr[cz + lane] = 0.f;
       for (int q = c4 / 4 + lane; q < cmax / 4; q += 32) {
@@ -718,9 +747,9 @@ fwd_apply_kernel(const float* __restrict__ v, const double* __restrict__ part,
 
 // The gradient of z at the lane's channels: the saved bit (keyed, ReLU on,
 // kept) times gy, scaled by the dropout's inverse keep rate.
-template <int V>
+template <int V, class T>
 __device__ __forceinline__ void grad_z(const unsigned* __restrict__ bits,
-                                       const float* __restrict__ gy,
+                                       const T* __restrict__ gy,
                                        size_t row, const Lanes& m, int co, int cmax, float scale,
                                        float (&gz)[V]) {
   load_ch<V>(gy + row * cmax, m.c0, co, vec_rows<V>(cmax), gz);
@@ -734,10 +763,10 @@ __device__ __forceinline__ void grad_z(const unsigned* __restrict__ bits,
 // Backward 1: per-key partials G1 = sum gz, G2 = sum gz (v - s) of the block.
 // Grid (P, B).  Dynamic shared memory: keyed_add cells for 2 quantities, then
 // s (K x co doubles).
-template <int V>
+template <int V, class T>
 __global__ void __launch_bounds__(kThreads, 4)
 bwd_norm_kernel(const float* __restrict__ v, const double* __restrict__ stats,
-                     const unsigned* __restrict__ bits, const float* __restrict__ gy,
+                     const unsigned* __restrict__ bits, const T* __restrict__ gy,
                      const float* __restrict__ planes, int levels, double* __restrict__ part,
                      int R, int co, int cmax, int K) {
   extern __shared__ __align__(16) float smem[];
@@ -788,11 +817,11 @@ bwd_norm_kernel(const float* __restrict__ v, const double* __restrict__ stats,
 // alphas, LeakyReLU slopes and key in shared memory.  Grid (P, B).  Dynamic
 // shared memory: 4 coefficient and 3 parameter-grad planes, K x co doubles
 // each; then 16 floats (7 alphas, the mask, 7 slopes, 0) and a key for each row.
-template <int V>
+template <int V, class T>
 __global__ void __launch_bounds__(kThreads)
 bwd_rows_kernel(const double* __restrict__ part, const double* __restrict__ stats,
             const float* __restrict__ nk, const float* __restrict__ vec,
-            const unsigned* __restrict__ bits, const float* __restrict__ gy,
+            const unsigned* __restrict__ bits, const T* __restrict__ gy,
             const float* __restrict__ v, const float* __restrict__ h,
             const float* __restrict__ a_s, const float* __restrict__ a_d,
             const float* __restrict__ alphas, const float* __restrict__ planes, int levels,
@@ -978,13 +1007,13 @@ __device__ __forceinline__ void lds(const float* p, float (&o)[N]) {
 // alpha_self, mask, da_s, da_d) in shared memory.  Grid (P, B).  Dynamic
 // shared memory, widths rounded up to 8 and zero padded: W^T (co8 x cmax,
 // zeros beyond ci), gh tile (TR x co8), x tile (TR x ci8), then 12 floats a row.
-template <int V, int MI, int MJ>
+template <int V, int MI, int MJ, class T>
 __global__ void __launch_bounds__(kThreads)
-bwd_gather_kernel(const float* __restrict__ x, const float* __restrict__ w,
+bwd_gather_kernel(const T* __restrict__ x, const float* __restrict__ w,
                   const float* __restrict__ att, const float* __restrict__ gu,
                   const float* __restrict__ de, const float* __restrict__ alphas,
                   const float* __restrict__ h, const float* __restrict__ planes,
-                  float* __restrict__ gx, float* __restrict__ pw, float* __restrict__ patt,
+                  T* __restrict__ gx, float* __restrict__ pw, float* __restrict__ patt,
                   int R, int Y, int X, int ci, int co, int cmax) {
   extern __shared__ __align__(16) float smem[];
   const int cs = round8(co), ci8 = round8(ci), TR = gather_tile_rows(co);
@@ -1029,7 +1058,7 @@ bwd_gather_kernel(const float* __restrict__ x, const float* __restrict__ w,
     __syncthreads();  // W^T and the zeros staged; the last tile's products done
     for (int e = t; e < TR * ci8; e += kThreads) {
       const int r = r0 + e / ci8, i = e % ci8;
-      xs[e] = r < rend && i < ci ? x[(slot + r) * cmax + i] : 0.f;
+      xs[e] = r < rend && i < ci ? to_float(x[(slot + r) * cmax + i]) : 0.f;
     }
     for (int rr = t; rr < TR; rr += kThreads) {  // rows: the scalars of the gather
       const int r = r0 + rr;
@@ -1124,7 +1153,7 @@ bwd_gather_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
           const int n = (2 * half + q) * 32 + lane;
-          if (n < cmax) gx[(slot + r) * cmax + n] = gxa[i][q];
+          if (n < cmax) gx[(slot + r) * cmax + n] = from_float<T>(gxa[i][q]);
         }
       }
     }
@@ -1287,17 +1316,19 @@ const char* g_failed = "";
     }                                         \
   } while (0)
 
-template <int V>
-int forward_v(const float* x, const float* planes, const float* w, const float* att,
+template <int V, class T>
+int forward_v(const T* x, const float* planes, const float* w, const float* att,
               const float* vec, const long long* key, int levels, int B, int R, int Y, int X,
-              int cmax, int ci, int co, int K, float slope, float eps, float* y, float* h,
+              int cmax, int ci, int co, int K, float slope, float eps, T* y, float* h,
               float* v, float* scores, float* alphas, unsigned* bits, double* stats, float* nk,
               double* part, float* cnt, cudaStream_t s) {
   const int rows = B * R;
   const dim3 grid(chunks_for(R), B);
   const unsigned gemm_blocks = (unsigned)((rows + kGemmBlockRows - 1) / kGemmBlockRows);
   const int nj = co <= 16 ? 1 : co <= 32 ? 2 : 4;
-  auto gemm = nj == 1 ? fwd_gemm_kernel<1> : nj == 2 ? fwd_gemm_kernel<2> : fwd_gemm_kernel<4>;
+  auto gemm = nj == 1   ? fwd_gemm_kernel<1, T>
+              : nj == 2 ? fwd_gemm_kernel<2, T>
+                        : fwd_gemm_kernel<4, T>;
   const int ci8 = (ci + 7) & ~7, cw = (co + 16 * nj - 1) / (16 * nj) * (16 * nj);
   const size_t gemm_smem = sizeof(float) * (size_t)ci8 * (cw + kGemmTile);
   GT_TRY(allow_smem(gemm, gemm_smem));
@@ -1313,37 +1344,37 @@ int forward_v(const float* x, const float* planes, const float* w, const float* 
   GT_LAUNCHED("fwd_attend_kernel");
   const size_t apply_smem =
       sizeof(double) * 2 * (size_t)K * co + (co <= 32 ? sizeof(float) * (size_t)chunk * co : 0);
-  GT_TRY(allow_smem(fwd_apply_kernel<V>, apply_smem));
-  fwd_apply_kernel<V><<<grid, kThreads, apply_smem, s>>>(v, part, cnt, planes, vec, key, levels, y,
+  GT_TRY(allow_smem(fwd_apply_kernel<V, T>, apply_smem));
+  fwd_apply_kernel<V, T><<<grid, kThreads, apply_smem, s>>>(v, part, cnt, planes, vec, key, levels, y,
                                                      bits, stats, nk, R, co, cmax, K, eps);
   GT_LAUNCHED("fwd_apply_kernel");
   return 0;
 }
 
 // The gather pass's instance for a layer: its gW micro-tile MI x MJ covers ci x co.
-template <int V>
+template <int V, class T>
 auto gather_kernel_for(int ci, int co) {
   const int mi = ci <= 32 ? 2 : ci <= 64 ? 4 : 8;
   if constexpr (V < 4) {  // co < 4
-    return mi == 2 ? bwd_gather_kernel<V, 2, 2>
-           : mi == 4 ? bwd_gather_kernel<V, 4, 2>
-                     : bwd_gather_kernel<V, 8, 2>;
+    return mi == 2 ? bwd_gather_kernel<V, 2, 2, T>
+           : mi == 4 ? bwd_gather_kernel<V, 4, 2, T>
+                     : bwd_gather_kernel<V, 8, 2, T>;
   } else {
 #define GT_GATHER(MJ)                                                 \
-  (mi == 2   ? bwd_gather_kernel<V, 2, MJ>                               \
-   : mi == 4 ? bwd_gather_kernel<V, 4, MJ>                               \
-             : bwd_gather_kernel<V, 8, MJ>)
+  (mi == 2   ? bwd_gather_kernel<V, 2, MJ, T>                            \
+   : mi == 4 ? bwd_gather_kernel<V, 4, MJ, T>                            \
+             : bwd_gather_kernel<V, 8, MJ, T>)
     return co <= 32 ? GT_GATHER(2) : co <= 64 ? GT_GATHER(4) : GT_GATHER(8);
 #undef GT_GATHER
   }
 }
 
-template <int V>
-int backward_v(const float* x, const float* planes, const float* w, const float* att,
+template <int V, class T>
+int backward_v(const T* x, const float* planes, const float* w, const float* att,
                const float* vec, int levels, int B, int R, int Y, int X, int cmax, int ci, int co,
                int K, float slope, const float* h, const float* v, const float* scores,
                const float* alphas, const unsigned* bits, const double* stats, const float* nk,
-               const float* gy, float* gx, float* gw, float* gatt, float* gvec, float* gu,
+               const T* gy, T* gx, float* gw, float* gatt, float* gvec, float* gu,
                float* de, double* part, float* pbias, double* pgn, float* patt, float* pw,
                cudaStream_t s) {
   const int rows = B * R;
@@ -1351,19 +1382,19 @@ int backward_v(const float* x, const float* planes, const float* w, const float*
   const dim3 grid(P, B);
   const size_t norm_smem =
       sizeof(float) * (size_t)keyed_cells(2, K, V) + sizeof(double) * (size_t)K * co;
-  GT_TRY(allow_smem(bwd_norm_kernel<V>, norm_smem));
-  bwd_norm_kernel<V><<<grid, kThreads, norm_smem, s>>>(v, stats, bits, gy, planes, levels,
+  GT_TRY(allow_smem(bwd_norm_kernel<V, T>, norm_smem));
+  bwd_norm_kernel<V, T><<<grid, kThreads, norm_smem, s>>>(v, stats, bits, gy, planes, levels,
                                                             part, R, co, cmax, K);
   GT_LAUNCHED("bwd_norm_kernel");
   const int chunk = (R + P - 1) / P;
   const size_t rows_smem =
       sizeof(double) * (size_t)rows_planes_doubles(K, co) + sizeof(float) * 17 * (size_t)chunk;
-  GT_TRY(allow_smem(bwd_rows_kernel<V>, rows_smem));
-  bwd_rows_kernel<V><<<grid, kThreads, rows_smem, s>>>(part, stats, nk, vec, bits, gy, v, h, scores,
+  GT_TRY(allow_smem(bwd_rows_kernel<V, T>, rows_smem));
+  bwd_rows_kernel<V, T><<<grid, kThreads, rows_smem, s>>>(part, stats, nk, vec, bits, gy, v, h, scores,
                                                    scores + rows, alphas, planes, levels, gu, de,
                                                    pbias, pgn, R, Y, X, co, cmax, K, slope);
   GT_LAUNCHED("bwd_rows_kernel");
-  const auto gather = gather_kernel_for<V>(ci, co);
+  const auto gather = gather_kernel_for<V, T>(ci, co);
   const int cs = round8(co), TR = gather_tile_rows(co);
   const size_t gather_smem =
       sizeof(float) * ((size_t)cs * cmax + (size_t)TR * (cs + round8(ci) + 12));
@@ -1382,7 +1413,8 @@ int backward_v(const float* x, const float* planes, const float* w, const float*
 
 extern "C" {
 
-// One layer forward (3 launches).  Device pointers: x (B, R, cmax), planes
+// One layer forward (3 launches).  Device pointers: x (B, R, cmax) and y in
+// the activation storage `bf16` names (0: float, 1: __nv_bfloat16), planes
 // (B, R, 8), w (cmax, cmax) as (in, out), att (2, cmax), vec (4, cmax) = conv
 // bias, gn weight, gn bias, mean_scale; key (2,) int64 Philox words (read only
 // when levels > 0).  Outputs: y (B, R, cmax) and, saved for the backward, h
@@ -1391,9 +1423,9 @@ extern "C" {
 // 2, co) f64 and cnt (B, P, K) with P = gt_row_chunks(R).  16-byte
 // aligned pointers.  Launches on `stream`, does not synchronise; returns the
 // first CUDA error (0 on success; gt_failed_step names the step).
-int gt_forward(const float* x, const float* planes, const float* w, const float* att,
+int gt_forward(const void* x, const float* planes, const float* w, const float* att,
                const float* vec, const long long* key, int levels, int B, int F, int Y, int X,
-               int cmax, int ci, int co, int K, float slope, float eps, float* y, float* h,
+               int cmax, int ci, int co, int K, int bf16, float slope, float eps, void* y, float* h,
                float* v, float* scores, float* alphas, unsigned* bits, double* stats, float* nk,
                double* part, float* cnt, void* stream) {
   if (bad_dims(levels, B, F, Y, X, cmax, ci, co, K) || (levels > 0 && key == nullptr)) {
@@ -1402,9 +1434,13 @@ int gt_forward(const float* x, const float* planes, const float* w, const float*
   }
   cudaStream_t s = (cudaStream_t)stream;
   const int R = F * Y * X;
-#define GT_FORWARD(V)                                                                        \
-  forward_v<V>(x, planes, w, att, vec, key, levels, B, R, Y, X, cmax, ci, co, K, slope, eps, y, \
-               h, v, scores, alphas, bits, stats, nk, part, cnt, s)
+#define GT_FORWARD(V)                                                                       \
+  (bf16 ? forward_v<V>(static_cast<const __nv_bfloat16*>(x), planes, w, att, vec, key, levels, B, \
+                       R, Y, X, cmax, ci, co, K, slope, eps, static_cast<__nv_bfloat16*>(y), h,  \
+                       v, scores, alphas, bits, stats, nk, part, cnt, s)                         \
+        : forward_v<V>(static_cast<const float*>(x), planes, w, att, vec, key, levels, B, R, Y, \
+                       X, cmax, ci, co, K, slope, eps, static_cast<float*>(y), h, v, scores,     \
+                       alphas, bits, stats, nk, part, cnt, s))
   switch (lane_width(co)) {
     case 1: return GT_FORWARD(1);
     case 2: return GT_FORWARD(2);
@@ -1416,14 +1452,15 @@ int gt_forward(const float* x, const float* planes, const float* w, const float*
 
 // One layer backward (4 launches).  Inputs as gt_forward, what it saved (h, v,
 // scores, alphas, bits, stats, nk), and gy (B, R, cmax).  Outputs gx (B, R,
-// cmax), gw (cmax, cmax), gatt (2, cmax), gvec (4, cmax).  Scratch: gu (B, R,
-// co), de (B, R, 8), part (B, P, K, 2, co) f64, pbias (B, P, co), pgn (B, 3, co) f64,
-// patt (B, P, 2, co), pw (B, P, ci, co).
-int gt_backward(const float* x, const float* planes, const float* w, const float* att,
+// cmax), gw (cmax, cmax), gatt (2, cmax), gvec (4, cmax); x, gy and gx in the
+// storage `bf16` names, the rest f32.  Scratch: gu (B, R, co), de (B, R, 8),
+// part (B, P, K, 2, co) f64, pbias (B, P, co), pgn (B, 3, co) f64, patt (B, P,
+// 2, co), pw (B, P, ci, co).
+int gt_backward(const void* x, const float* planes, const float* w, const float* att,
                 const float* vec, const long long* key, int levels, int B, int F, int Y, int X,
-                int cmax, int ci, int co, int K, float slope, const float* h, const float* v,
-                const float* scores, const float* alphas, const unsigned* bits,
-                const double* stats, const float* nk, const float* gy, float* gx, float* gw,
+                int cmax, int ci, int co, int K, int bf16, float slope, const float* h,
+                const float* v, const float* scores, const float* alphas, const unsigned* bits,
+                const double* stats, const float* nk, const void* gy, void* gx, float* gw,
                 float* gatt, float* gvec, float* gu, float* de, double* part, float* pbias,
                 double* pgn, float* patt, float* pw, void* stream) {
   if (bad_dims(levels, B, F, Y, X, cmax, ci, co, K) || (levels > 0 && key == nullptr)) {
@@ -1432,10 +1469,15 @@ int gt_backward(const float* x, const float* planes, const float* w, const float
   }
   cudaStream_t s = (cudaStream_t)stream;
   const int R = F * Y * X;
-#define GT_BACKWARD(V)                                                                        \
-  backward_v<V>(x, planes, w, att, vec, levels, B, R, Y, X, cmax, ci, co, K, slope, h, v, scores, \
-                alphas, bits, stats, nk, gy, gx, gw, gatt, gvec, gu, de, part, pbias, pgn, patt, \
-                pw, s)
+#define GT_BACKWARD(V)                                                                       \
+  (bf16 ? backward_v<V>(static_cast<const __nv_bfloat16*>(x), planes, w, att, vec, levels, B, R, \
+                        Y, X, cmax, ci, co, K, slope, h, v, scores, alphas, bits, stats, nk,     \
+                        static_cast<const __nv_bfloat16*>(gy), static_cast<__nv_bfloat16*>(gx), \
+                        gw, gatt, gvec, gu, de, part, pbias, pgn, patt, pw, s)                   \
+        : backward_v<V>(static_cast<const float*>(x), planes, w, att, vec, levels, B, R, Y, X,  \
+                        cmax, ci, co, K, slope, h, v, scores, alphas, bits, stats, nk,           \
+                        static_cast<const float*>(gy), static_cast<float*>(gx), gw, gatt, gvec, \
+                        gu, de, part, pbias, pgn, patt, pw, s))
   switch (lane_width(co)) {
     case 1: return GT_BACKWARD(1);
     case 2: return GT_BACKWARD(2);

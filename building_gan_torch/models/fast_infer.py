@@ -3,7 +3,9 @@
 Port of ``building_gan_tpu/models/fast_infer.py``.  ``prepare`` packs the
 hourglass weights once; ``infer`` runs the generator's MLPs and pooling as
 plain PyTorch and the hourglass through ``ops.hourglass.hourglass_fwd``: the
-CUDA kernel on a CUDA batch, its plain version on a CPU batch.
+CUDA kernel on a CUDA batch, its plain version on a CPU batch.  At the
+model's compute dtype: under bf16 the kernel reads and writes bf16 (f32
+inside), and the logits come out f32.
 """
 
 from __future__ import annotations

@@ -9,7 +9,9 @@ hourglass weights are packed by ``ops.hourglass.pack_gat_weights`` on every
 call, with a graph, so autograd carries the kernels' weight grads back to
 each layer's parameters.  The MLP
 encoders and decoders and the pooling stay plain PyTorch, as they stay XLA
-in the JAX package.
+in the JAX package.  Everything runs at the model's compute dtype, with the
+JAX package's casts: the hourglass takes and returns activations in it (the
+kernels' bf16 storage at bf16), the logits and scores come out f32.
 
 The fused path is first-order differentiable (the backward is a kernel), so
 the gradient-penalty critic pass, differentiated twice, runs the plain

@@ -1,7 +1,9 @@
 """Grid-layout layers: GraphNorm, GAT conv, the hourglass stack, matched pooling.
 
 Each mirrors its counterpart in ``building_gan_tpu/models/grid_layers.py``
-on the flattened-row layout ``(B, R, C)``, R = F*Y*X.  Submodules and
+on the flattened-row layout ``(B, R, C)``, R = F*Y*X, at the dtype of their
+input (the compute dtype; parameters stay float32 and are cast at use, score
+and statistics math runs in float32).  Submodules and
 parameters are named after the reference ``state_dict`` layout
 (``encoder.module_{4i}.lin.weight``, ``encoder.module_{4i+1}.mean_scale``,
 ...), so converted weights load with ``load_state_dict`` unchanged.
@@ -57,34 +59,37 @@ def graph_norm(
     ``s = E[x] * mean_scale``, ``var = E[x^2] - 2 s E[x] + s^2``,
     ``y = x * w / sqrt(var + eps) + (b - s * w / sqrt(var + eps))``.
     Masked cells take no part in the statistics and come out as 0.  The
-    statistics are taken in float32, or in x's dtype when it is wider.
+    statistics are taken in float32 (or in x's dtype when it is wider);
+    ``scale`` and ``shift`` are then rounded to x's dtype and applied in it,
+    as ``building_gan_tpu/models/grid_layers.py::GridGraphNorm`` does (with
+    K > 1 the squares, too, are taken in x's dtype before their f32 sums).
     """
     dt = torch.promote_types(x.dtype, torch.float32)
     m = mask.to(dt)[..., None]
-    xf = x.to(dt)
     if gid is not None and num_graphs > 1:
         oh = F.one_hot(gid.long().clamp(min=0), num_graphs).to(dt)
         oh = oh * ((gid >= 0) & (gid < num_graphs)).to(dt)[..., None] * m  # (B, R, K)
         counts = oh.sum(dim=1).clamp(min=1.0)  # (B, K)
-        s1 = torch.einsum("brk,brc->bkc", oh, xf)
-        s2 = torch.einsum("brk,brc->bkc", oh, xf * xf)
+        s1 = torch.einsum("brk,brc->bkc", oh, x.to(dt))
+        s2 = torch.einsum("brk,brc->bkc", oh, (x * x).to(dt))
         mean = s1 / counts[..., None]
         ex2 = s2 / counts[..., None]
         s = mean * mean_scale
         var = torch.clamp(ex2 - 2.0 * s * mean + s * s, min=0.0)
         inv = weight * torch.rsqrt(var + eps)
-        shift_ = bias - s * inv
-        both = torch.cat([inv, shift_], dim=-1)  # (B, K, 2C)
-        t = torch.einsum("brk,bkc->brc", oh, both)
+        both = torch.cat([inv, bias - s * inv], dim=-1).to(x.dtype)  # (B, K, 2C)
+        # a one-hot select: exact in any dtype
+        t = torch.einsum("brk,bkc->brc", oh, both.to(dt)).to(x.dtype)
         C = inv.shape[-1]
-        return (xf * t[..., :C] + t[..., C:]).to(x.dtype)
+        return x * t[..., :C] + t[..., C:]
+    xf = x.to(dt)
     denom = mask.to(dt).sum(dim=1).clamp(min=1.0)[:, None, None]
     mean = (xf * m).sum(dim=1, keepdim=True) / denom
     ex2 = (xf * xf * m).sum(dim=1, keepdim=True) / denom
     s = mean * mean_scale
     var = torch.clamp(ex2 - 2.0 * s * mean + s * s, min=0.0)
     inv = weight * torch.rsqrt(var + eps)
-    return ((xf * inv + (bias - s * inv)) * m).to(x.dtype)
+    return (x * inv.to(x.dtype) + (bias - s * inv).to(x.dtype)) * m.to(x.dtype)
 
 
 class GridGraphNorm(nn.Module):
@@ -108,7 +113,8 @@ class GridGATConv(nn.Module):
 
     ``a_src`` and ``a_dst`` come from the folded GEMM ``x @ [W, W att_src,
     W att_dst]``, as in the JAX layer; the fused kernel takes them from
-    ``(x W) . att`` instead (same value, other rounding).
+    ``(x W) . att`` instead (same value, other rounding).  The folded
+    weights are cast to x's dtype (the compute dtype) and the GEMM runs in it.
     """
 
     def __init__(self, in_features: int, features: int, negative_slope: float = 0.2):
@@ -126,14 +132,14 @@ class GridGATConv(nn.Module):
         C = w.shape[1]
         wa = torch.cat(
             [w, w @ self.att_src.reshape(C, 1), w @ self.att_dst.reshape(C, 1)], dim=1
-        )
+        ).to(x.dtype)
         ha = x @ wa
         h = ha[..., :C]
         out = stencil.stencil_gat_flat(
             h, ha[..., C], ha[..., C + 1], mask, grid_shape,
             negative_slope=self.negative_slope, gid=gid,
         )
-        return out + self.bias
+        return out + self.bias.to(out.dtype)
 
 
 class GridHourglass(nn.Module):
@@ -198,6 +204,8 @@ def grid_type_matched_pooling(
 
     A per-(graph, type) mean table built with one einsum, read back with a
     one-hot matmul.  Multi-building slots key the table on (building, type).
+    Sums in float32, the table rounded to ``local_x``'s dtype (the caller
+    casts it to the compute dtype), as the JAX function does.
     """
     B = voxel_type.shape[0]
     cells = tuple(voxel_type.shape[1:])

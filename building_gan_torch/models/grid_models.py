@@ -1,8 +1,12 @@
 """Grid-layout generator and critic: the port of ``GridVoxelGNNGenerator``
 and ``GridVoxelGNNDiscriminator``.
 
-Same computation as ``building_gan_tpu/models/grid_models.py`` in float32,
-with submodules named after the reference ``state_dict``.  Generator:
+Same computation as ``building_gan_tpu/models/grid_models.py``, at its
+dtypes: parameters float32, activations in ``COMPUTE_DTYPE`` (the models'
+``compute_dtype``), cast on entry as the JAX models cast them (voxel and
+local features, z, the label); the generator's logits and the critic's
+scores come out in float32.  Submodules are named after the
+reference ``state_dict``.  Generator:
 ``matched_features_encoder``, ``mlp_encoder``, ``encoder`` (the GAT
 hourglass) and ``decoder`` (four MLP blocks, then the 7-way head at
 ``decoder.12``).  Critic: ``mlp_encoder.{0,2}`` (Linear, ReLU), ``encoder``
@@ -20,7 +24,7 @@ from torch import nn
 from ..config import NUM_CLASSES, Configuration
 from ..ops.gumbel import gumbel_softmax_st
 from .grid_layers import GridHourglass, grid_type_matched_pooling
-from .layers import mlp_stack
+from .layers import Dense, mlp_stack
 
 LOCAL_FEATURES = 17
 VOXEL_FEATURES = 12
@@ -35,6 +39,7 @@ class GridVoxelGNNGenerator(nn.Module):
         if cfg.BATCH_LEVEL_GRAPHNORM or cfg.BATCH_LEVEL_MATCHING:
             raise NotImplementedError("the batch-level quirk modes are not ported")
         self.configuration = cfg
+        self.compute_dtype = cfg.compute_dtype
         lh, gh, z = cfg.LOCAL_ENCODER_HIDDEN_DIM, cfg.GENERATOR_HIDDEN_DIM, cfg.Z_DIM
         self.matched_features_encoder = mlp_stack(
             LOCAL_FEATURES, [lh] * (1 + cfg.LOCAL_GRAPH_ENCODER_REPEAT)
@@ -49,28 +54,30 @@ class GridVoxelGNNGenerator(nn.Module):
         self.decoder = mlp_stack(
             2 * gh + lh + VOXEL_FEATURES + z, [gh, gh // 2, gh // 4, gh // 8]
         )
-        self.decoder.append(nn.Linear(gh // 8, NUM_CLASSES))
+        self.decoder.append(Dense(gh // 8, NUM_CLASSES))
 
     def encode(self, batch, z: torch.Tensor):
-        """Everything before the hourglass: -> (x, encoded_matched, voxel_x, z, mask, gid), flat."""
+        """Everything before the hourglass: -> (x, encoded_matched, voxel_x, z, mask, gid), flat,
+        in the compute dtype."""
+        dt = self.compute_dtype
         B = batch.x.shape[0]
-        voxel_x = batch.x.reshape(B, -1, batch.x.shape[-1]).float()
+        voxel_x = batch.x.reshape(B, -1, batch.x.shape[-1]).to(dt)
         mask = batch.mask.reshape(B, -1)
         vtype = batch.type.reshape(B, -1)
         gid = None if batch.gid is None else batch.gid.reshape(B, -1)
         matched_x = grid_type_matched_pooling(
-            batch.local_x.float(), batch.local_type, batch.local_mask, vtype, NUM_CLASSES,
+            batch.local_x.to(dt), batch.local_type, batch.local_mask, vtype, NUM_CLASSES,
             local_gid=batch.local_gid, gid=gid, num_graphs=batch.graphs_per_slot,
         )
         encoded_matched = self.matched_features_encoder(matched_x)
-        z = z.reshape(B, -1, z.shape[-1]).float()
+        z = z.reshape(B, -1, z.shape[-1]).to(dt)
         x = self.mlp_encoder(torch.cat([encoded_matched, voxel_x, z], dim=-1))
         return x, encoded_matched, voxel_x, z, mask, gid
 
     def decode(self, batch, encoded, x, encoded_matched, voxel_x, z, gumbel_noise=None,
                generator: torch.Generator | None = None):
         final = torch.cat([encoded, x, encoded_matched, voxel_x, z], dim=-1)
-        logits = self.decoder(final).float()
+        logits = self.decoder(final).float()  # the head in the compute dtype, logits in f32
         if gumbel_noise is not None:
             gumbel_noise = gumbel_noise.reshape(logits.shape)
         label_hard, label_soft = gumbel_softmax_st(logits, gumbel_noise, generator)
@@ -92,7 +99,12 @@ class GridVoxelGNNGenerator(nn.Module):
 
 
 class GridVoxelGNNDiscriminator(nn.Module):
-    """Critic over a ``GridBatch``: (batch, label) -> per-cell scores (B, F, Y, X, 1)."""
+    """Critic over a ``GridBatch``: (batch, label) -> per-cell scores (B, F, Y, X, 1) in f32.
+
+    ``forward`` and ``encode`` take a per-call ``dtype`` in place of the
+    compute dtype, the way the JAX train step clones its critic at f32 for
+    the gradient penalty (``GP_DTYPE="float32"``).
+    """
 
     def __init__(self, configuration: Configuration):
         super().__init__()
@@ -102,43 +114,46 @@ class GridVoxelGNNDiscriminator(nn.Module):
         if not cfg.USE_WGANGP:
             raise NotImplementedError("only the WGAN critic (USE_WGANGP=True) is ported")
         self.configuration = cfg
+        self.compute_dtype = cfg.compute_dtype
         d = cfg.DISCRIMINATOR_HIDDEN_DIM
         self.mlp_encoder = nn.Sequential(
-            nn.Linear(LOCAL_FEATURES + VOXEL_FEATURES + NUM_CLASSES, d), nn.ReLU(),
-            nn.Linear(d, d), nn.ReLU(),
+            Dense(LOCAL_FEATURES + VOXEL_FEATURES + NUM_CLASSES, d), nn.ReLU(),
+            Dense(d, d), nn.ReLU(),
         )
         self.encoder = GridHourglass(
             d, cfg.DISCRIMINATOR_ENCODER_REPEAT, cfg.HOURGLASS_MIN_CHANNELS,
             conv_type=cfg.DISCRIMINATOR_CONV_TYPE, dropout_rate=cfg.ENCODER_DROPOUT_RATE,
         )
         self.decoder = nn.Sequential(
-            nn.Linear(d, d // 2), nn.ReLU(),
-            nn.Linear(d // 2, d // 4), nn.ReLU(),
-            nn.Linear(d // 4, d // 8), nn.ReLU(),
-            nn.Linear(d // 8, 1),
+            Dense(d, d // 2), nn.ReLU(),
+            Dense(d // 2, d // 4), nn.ReLU(),
+            Dense(d // 4, d // 8), nn.ReLU(),
+            Dense(d // 8, 1),
         )
 
-    def encode(self, batch, label: torch.Tensor):
-        """Everything before the hourglass: -> (x (B, R, d), mask, gid), flat."""
+    def encode(self, batch, label: torch.Tensor, dtype: torch.dtype | None = None):
+        """Everything before the hourglass: -> (x (B, R, d), mask, gid), flat, in ``dtype``
+        (default: the model's compute dtype)."""
+        dt = self.compute_dtype if dtype is None else dtype
         B = batch.x.shape[0]
-        voxel_x = batch.x.reshape(B, -1, batch.x.shape[-1]).float()
+        voxel_x = batch.x.reshape(B, -1, batch.x.shape[-1]).to(dt)
         vtype = batch.type.reshape(B, -1)
         gid = None if batch.gid is None else batch.gid.reshape(B, -1)
-        label = label.reshape(B, -1, label.shape[-1]).float()
+        label = label.reshape(B, -1, label.shape[-1]).to(dt)
         matched_x = grid_type_matched_pooling(
-            batch.local_x.float(), batch.local_type, batch.local_mask, vtype, NUM_CLASSES,
+            batch.local_x.to(dt), batch.local_type, batch.local_mask, vtype, NUM_CLASSES,
             local_gid=batch.local_gid, gid=gid, num_graphs=batch.graphs_per_slot,
         )
         x = self.mlp_encoder(torch.cat([matched_x, voxel_x, label], dim=-1))
         return x, batch.mask.reshape(B, -1), gid
 
     def decode(self, batch, encoded: torch.Tensor) -> torch.Tensor:
-        """Per-cell WGAN critic scores (the sigmoid of ``USE_WGANGP=False`` is not ported)."""
+        """Per-cell WGAN critic scores in f32 (the sigmoid of ``USE_WGANGP=False`` is not ported)."""
         return self.decoder(encoded).float().reshape(tuple(batch.x.shape[:4]) + (1,))
 
     def forward(self, batch, label, deterministic: bool = True,
-                keys: torch.Tensor | None = None) -> torch.Tensor:
-        x, mask, gid = self.encode(batch, label)
+                keys: torch.Tensor | None = None, dtype: torch.dtype | None = None) -> torch.Tensor:
+        x, mask, gid = self.encode(batch, label, dtype)
         encoded = self.encoder(
             x, mask, batch.grid_shape, gid=gid, num_graphs=batch.graphs_per_slot,
             deterministic=deterministic, keys=keys,

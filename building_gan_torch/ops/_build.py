@@ -56,7 +56,8 @@ def _lib_path(name: str) -> str:
 
 def _kernel_name(mangled: str) -> str:
     """Readable name of a mangled ``__global__`` function, in a namespace or not,
-    with its integer template arguments (``name<4, 2>``)."""
+    with its template arguments: integers, bools and the storage type
+    (``name<4, 2, float>``, ``name<true>``)."""
     name, rest = mangled, ""
     m = re.match(r"_ZN(\d+)", mangled)  # _ZN <len><namespace> <len><name> E ...
     if m:
@@ -70,8 +71,14 @@ def _kernel_name(mangled: str) -> str:
         if m:
             end = m.end() + int(m.group(1))
             name, rest = mangled[m.end(): end], mangled[end:]
-    t = re.match(r"I((?:Li-?\d+E)+)E", rest)  # integer template arguments
-    return f"{name}<{', '.join(re.findall(r'Li(-?\d+)E', t.group(1)))}>" if t else name
+    arg = r"Li(-?\d+)E|Lb([01])E|(f)|13(__nv_bfloat16)"
+    t = re.match(rf"I((?:{arg})+)E", rest)  # template arguments
+    if not t:
+        return name
+    args = []
+    for i, b, f, _ in re.findall(arg, t.group(1)):
+        args.append(i if i else ("true" if b == "1" else "false") if b else "float" if f else "bf16")
+    return f"{name}<{', '.join(args)}>"
 
 
 def ptxas_usage(log: str) -> list:

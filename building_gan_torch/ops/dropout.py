@@ -25,6 +25,8 @@ bit-equal to ``keep_mask``, which stays as the kernel's oracle.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -110,7 +112,13 @@ def dropout(x: torch.Tensor, key: torch.Tensor, rate: float, width: int | None =
     if width < x.shape[-1]:
         raise ValueError(f"padded width {width} is below the block's {x.shape[-1]} channels")
     keep = _keep(tuple(x.shape), key, levels, width, x.device)
-    return x * keep.to(x.dtype) * keep_scale(levels)
+    return x * keep.to(x.dtype) * _keep_scale_in(levels, x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _keep_scale_in(levels: int, dtype: torch.dtype) -> float:
+    """The inverse keep rate rounded to ``dtype``, as FastDropout casts it (1.25 in bf16)."""
+    return torch.tensor(keep_scale(levels), dtype=dtype).item()
 
 
 def _keep(shape, key: torch.Tensor, levels: int, width: int, device) -> torch.Tensor:

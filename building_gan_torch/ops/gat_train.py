@@ -24,6 +24,10 @@ CUDA tensors each layer is ``_FusedLayer``: the forward kernel
 ``csrc/gat_train.cu::gt_forward`` and, as its backward, the kernel
 ``gt_backward``, with gradients to x, W, att and vec.  Anything else raises;
 there is no fallback from the kernel to the plain version.
+
+Activations (x, y and their grads) are float32 or bfloat16, as the TPU kernel
+takes ``x.dtype``: the math inside stays f32, the weights and their grads
+f32, and a bf16 layer rounds only what it writes (y, gx).
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from typing import Sequence, Tuple
 import torch
 
 from . import dropout as drop
-from .hourglass import LaunchCounter, _check
+from .hourglass import STORAGE_DTYPES, LaunchCounter, _check, storage_flag
 from .stencil import NEG_INF, _nbr_valid_flat, shift
 
 MAX_CHANNELS = 128
@@ -86,9 +90,11 @@ def layer_plain(
     eps: float = 1e-5,
     branches: Tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
-    """One training layer in plain PyTorch, in x's dtype (f32, or f64 as a reference).
+    """One training layer in plain PyTorch: math in f32, or in f64 for an f64 x (a reference).
 
-    The arithmetic of ``gat_train.py::_fwd_kernel``; autograd gives the
+    A bf16 x is the kernels' bf16 storage mode: read as f32, the layer in f32,
+    y rounded to bf16 (and by autograd gx rounded to bf16, the weight grads
+    f32).  The arithmetic of ``gat_train.py::_fwd_kernel``; autograd gives the
     gradients of ``_bwd_kernel``.  The softmax shift is detached and the
     variance clamp passes its gradient straight through, as the closed-form
     backward does.  LeakyReLU is ``where(v >= 0, v, slope * v)``, whose
@@ -100,7 +106,9 @@ def layer_plain(
     f64 then takes the branches another computation took where f32 rounding
     decided a sign near 0.
     """
-    dt = x.dtype
+    out_dtype = x.dtype
+    dt = torch.promote_types(x.dtype, torch.float32)
+    x = x.to(dt)
     planes = planes.to(dt)
     mask = planes[..., 6]
     m3 = mask[..., None]
@@ -143,7 +151,7 @@ def layer_plain(
     if levels > 0:
         keep = drop.keep_mask(tuple(y.shape), key, levels, device=y.device)
         y = y * keep.to(dt) * drop.keep_scale(levels)
-    return y
+    return y.to(out_dtype)
 
 
 def hourglass_train_plain(x, planes, Ws, atts, vecs, keys, grid_shape, K=1, levels=0,
@@ -163,7 +171,7 @@ def hourglass_train_plain(x, planes, Ws, atts, vecs, keys, grid_shape, K=1, leve
 def _bind(lib):
     """Declare the C signatures of ``csrc/gat_train.cu`` on a loaded library."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    dims = [i, i, i, i, i, i, i, i, i]  # levels, B, F, Y, X, cmax, ci, co, K
+    dims = [i, i, i, i, i, i, i, i, i, i]  # levels, B, F, Y, X, cmax, ci, co, K, bf16
     lib.gt_forward.argtypes = (
         [p, p, p, p, p, p] + dims + [f, f]  # x, planes, w, att, vec, key; slope, eps
         + [p] * 10  # y, h, v, scores, alphas, bits, stats, nk, part, cnt
@@ -262,14 +270,14 @@ def launch_forward(lib, stream, x, planes, w, att, vec, key, meta):
     ci, co, K, levels, (F, Y, X), slope, eps = meta
     B, R, cmax = x.shape
     P = lib.gt_row_chunks(R)
-    y = torch.empty(B, R, cmax, device=x.device, dtype=torch.float32)
+    y = torch.empty(B, R, cmax, device=x.device, dtype=x.dtype)
     offsets, total = _layout(_saved_shapes(lib, B, R, co, K))
     saved = torch.empty(total, device=x.device, dtype=torch.float32)
     s_off, s_total = _layout(((B, P, K, 2, 2 * co), (B, P, K)))
     scratch = torch.empty(s_total, device=x.device, dtype=torch.float32)
     rc = lib.gt_forward(
         _ptr(x), _ptr(planes), _ptr(w), _ptr(att), _ptr(vec), _ptr(key),
-        levels, B, F, Y, X, cmax, ci, co, K, slope, eps,
+        levels, B, F, Y, X, cmax, ci, co, K, storage_flag(x), slope, eps,
         _ptr(y), *_ptrs(saved, offsets), *_ptrs(scratch, s_off), stream,
     )
     _raise_on(lib, rc, "forward")
@@ -282,7 +290,7 @@ def launch_backward(lib, stream, gy, x, planes, w, att, vec, key, saved, meta):
     B, R, cmax = x.shape
     P = lib.gt_row_chunks(R)
     offsets, _ = _layout(_saved_shapes(lib, B, R, co, K))
-    gx = torch.empty(B, R, cmax, device=x.device, dtype=torch.float32)
+    gx = torch.empty(B, R, cmax, device=x.device, dtype=x.dtype)
     grads = torch.empty(6 * cmax + cmax * cmax, device=x.device, dtype=torch.float32)
     gw = grads[:cmax * cmax].view(cmax, cmax)
     gatt = grads[cmax * cmax:cmax * cmax + 2 * cmax].view(2, cmax)
@@ -292,7 +300,7 @@ def launch_backward(lib, stream, gy, x, planes, w, att, vec, key, saved, meta):
     scratch = torch.empty(s_total, device=x.device, dtype=torch.float32)
     rc = lib.gt_backward(
         _ptr(x), _ptr(planes), _ptr(w), _ptr(att), _ptr(vec), _ptr(key),
-        levels, B, F, Y, X, cmax, ci, co, K, slope,
+        levels, B, F, Y, X, cmax, ci, co, K, storage_flag(x), slope,
         *_ptrs(saved, offsets), _ptr(gy),
         _ptr(gx), _ptr(gw), _ptr(gatt), _ptr(gvec),
         *_ptrs(scratch, s_off), stream,
@@ -319,7 +327,9 @@ def _check_call(x, planes, w, att, vec, key, meta) -> None:
         raise ValueError(f"K {K} outside [1, {MAX_KEYS}]")
     if not 0 <= levels < 256:
         raise ValueError(f"dropout levels {levels} outside [0, 256)")
-    _check(x, "x", torch.float32, (B, R, cmax), dev)
+    if x.dtype not in STORAGE_DTYPES:
+        raise TypeError(f"x must be one of {STORAGE_DTYPES}, got {x.dtype}")
+    _check(x, "x", x.dtype, (B, R, cmax), dev)
     _check(planes, "planes", torch.float32, (B, R, 8), dev)
     _check(w, "w", torch.float32, (cmax, cmax), dev)
     _check(att, "att", torch.float32, (2, cmax), dev)
@@ -352,7 +362,7 @@ class _FusedLayer(torch.autograd.Function):
     def backward(ctx, gy):
         x, w, att, vec, planes, key, saved = ctx.saved_tensors
         gy = gy.contiguous()
-        _check(gy, "gy", torch.float32, tuple(x.shape), x.device)
+        _check(gy, "gy", x.dtype, tuple(x.shape), x.device)
         lib = _load()
         with torch.cuda.device(x.device):
             gx, gw, gatt, gvec = launch_backward(

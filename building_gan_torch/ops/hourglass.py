@@ -9,7 +9,9 @@ once into three zero-padded arrays:
     vecs (L, 4, Cmax)     conv bias, GraphNorm weight, bias, mean_scale
 
 ``hourglass_fwd`` is the wrapper: on CPU tensors it runs ``hourglass_plain``;
-on CUDA tensors it launches ``csrc/hourglass.cu`` or raises.  GraphNorm
+on CUDA tensors it launches ``csrc/hourglass.cu`` or raises.  x and the output
+are float32 or bfloat16 (the compute dtype); the math is f32 either way, and
+at bf16 each layer's output is rounded to bf16 before the next layer reads it.  GraphNorm
 statistics are per (slot, gid key), so unlike the TPU kernel (per slot) it
 also matches the flax stack on multi-building (K>1) batches.
 
@@ -28,12 +30,19 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..config import _TORCH_DTYPES, PORTED_DTYPES
 from . import stencil
 
 MAX_CHANNELS = 128
 MAX_KEYS = 16
 MAX_LAYERS = 64
 MAX_SLOTS = 65535  # the launch grid's y extent
+STORAGE_DTYPES = tuple(_TORCH_DTYPES[d] for d in PORTED_DTYPES)  # activations the kernels take
+
+
+def storage_flag(x: torch.Tensor) -> int:
+    """The kernels' storage flag for x's dtype (1: bf16, 0: f32)."""
+    return int(x.dtype == torch.bfloat16)
 
 
 class LaunchCounter:
@@ -100,17 +109,19 @@ def hourglass_plain(
     negative_slope: float = 0.2,
     eps: float = 1e-5,
 ) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch: (B, F, Y, X, Cmax) -> same shape.
+    """The kernel's arithmetic in plain PyTorch: (B, F, Y, X, Cmax) -> same shape, x's dtype.
 
-    Runs in x's dtype: float32 as the kernel does, or float64 as a reference
-    for how far float32 rounding alone moves the result.
+    Math in float32 as the kernel's (or in float64 for an f64 x, a reference
+    for how far float32 rounding alone moves the result).  A bf16 x is the
+    kernel's bf16 storage mode: each layer's output is rounded to bf16.
     """
     from ..models.grid_layers import graph_norm
 
     B, F, Y, X, cmax = x.shape
     grid_shape = (F, Y, X)
-    xf = x.reshape(B, -1, cmax)
-    m = mask.reshape(B, -1).to(x.dtype)
+    dt = torch.promote_types(x.dtype, torch.float32)
+    xf = x.reshape(B, -1, cmax).to(dt)
+    m = mask.reshape(B, -1).to(dt)
     g = None if gid is None else gid.reshape(B, -1)
     for l, (ci, co) in enumerate(chans):
         h = xf[..., :ci] @ Ws[l, :ci, :co]
@@ -120,8 +131,8 @@ def hourglass_plain(
         v = v + vecs[l, 0, :co]
         xf = torch.relu(
             graph_norm(v, m, vecs[l, 1, :co], vecs[l, 2, :co], vecs[l, 3, :co], eps, g, num_graphs)
-        )
-    return xf.reshape(B, F, Y, X, -1)
+        ).to(x.dtype).to(dt)
+    return xf.to(x.dtype).reshape(B, F, Y, X, -1)
 
 
 def _bind(lib):
@@ -133,7 +144,8 @@ def _bind(lib):
         ctypes.POINTER(ctypes.c_int), i,  # chans, L
         i, i, i, i, i,  # B, F, Y, X, cmax
         f, f,  # slope, eps
-        p, i, p,  # out, cluster (0: the kernel's choice), trace (null)
+        p, p, i,  # out, vlast (bf16: the last layer's f32 v; else null), bf16
+        i, p,  # cluster (0: the kernel's choice), trace (null)
         p,  # stream
     ]
     lib.hg_forward.restype = ctypes.c_int
@@ -210,7 +222,9 @@ def hourglass_cuda(x, mask, Ws, atts, vecs, chans, gid=None, num_graphs=1,
             raise ValueError(f"layer {l} takes {ci} channels, the previous layer gives {chans[l - 1][1]}")
     if chans[0][0] != cmax or chans[-1][1] != cmax:
         raise ValueError("first input and last output width must equal the padded width")
-    _check(x, "x", torch.float32, (B, F, Y, X, cmax), dev)
+    if x.dtype not in STORAGE_DTYPES:
+        raise TypeError(f"x must be one of {STORAGE_DTYPES}, got {x.dtype}")
+    _check(x, "x", x.dtype, (B, F, Y, X, cmax), dev)
     _check(mask, "mask", torch.float32, (B, F, Y, X), dev)
     _check(Ws, "Ws", torch.float32, (L, cmax, cmax), dev)
     _check(atts, "atts", torch.float32, (L, 2, cmax), dev)
@@ -230,12 +244,15 @@ def hourglass_cuda(x, mask, Ws, atts, vecs, chans, gid=None, num_graphs=1,
         raise ValueError(f"no cluster of at most 16 CTAs holds a slot of {R} rows at width {cmax} "
                          f"with {K} keys")
     out = torch.empty_like(x)
+    bf16 = storage_flag(x)
+    vlast = torch.empty(x.shape, device=dev, dtype=torch.float32) if bf16 else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.hg_forward(
             x.data_ptr(), mask.data_ptr(), None if gid is None else gid.data_ptr(), K,
             Ws.data_ptr(), atts.data_ptr(), vecs.data_ptr(), chans_c, L,
-            B, F, Y, X, cmax, negative_slope, eps, out.data_ptr(), cluster, None, stream,
+            B, F, Y, X, cmax, negative_slope, eps, out.data_ptr(),
+            None if vlast is None else vlast.data_ptr(), bf16, cluster, None, stream,
         )
     if rc != 0:
         raise RuntimeError(f"hourglass kernel launch failed: {lib.hg_error_string(rc).decode()}")
@@ -247,7 +264,7 @@ def hourglass_fwd(x, mask, Ws, atts, vecs, chans, gid=None, num_graphs=1,
                   negative_slope=0.2, eps=1e-5) -> torch.Tensor:
     """Deterministic hourglass forward: the kernel on CUDA, the plain version on CPU.
 
-    ``x`` (B, F, Y, X, Cmax) f32 -> (B, F, Y, X, Cmax).
+    ``x`` (B, F, Y, X, Cmax) f32 or bf16 -> (B, F, Y, X, Cmax) in x's dtype.
     """
     if x.device.type == "cpu":
         return hourglass_plain(x, mask, Ws, atts, vecs, chans, gid, num_graphs, negative_slope, eps)

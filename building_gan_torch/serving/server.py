@@ -11,7 +11,9 @@ Port of ``building_gan_tpu/serving/server.py``:
   kernel when the server's device is a GPU;
 - z and the Gumbel noise of a request come from a ``torch.Generator`` seeded
   by the request's seed, so a building's output does not depend on its
-  batchmates (the fused kernel keeps slots apart and uses no atomics).
+  batchmates (the fused kernel keeps slots apart and uses no atomics);
+- the generator runs at ``COMPUTE_DTYPE`` (bf16 by default): the noise is
+  drawn in f32 and cast on entry, the logits come back f32.
 
 Results are per-voxel arrays in the request's own node order.
 """
@@ -46,7 +48,7 @@ class InferenceServer:
         device: str | torch.device = "cuda",
     ):
         cfg = configuration
-        cfg.require_float32("InferenceServer")
+        cfg.require_ported_dtype("InferenceServer")
         if cfg.LAYOUT != "grid":
             raise ValueError("serving uses the grid layout")
         if cfg.BATCH_LEVEL_MATCHING or cfg.BATCH_LEVEL_GRAPHNORM:

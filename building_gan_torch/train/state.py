@@ -42,9 +42,10 @@ def make_optimizers(cfg: Configuration, generator: nn.Module, discriminator: nn.
 def create_train_state(cfg: Configuration, generator: nn.Module, discriminator: nn.Module,
                        device: torch.device | str = "cuda") -> TrainState:
     """Move both modules to ``device`` (the card unless the caller asks for the CPU),
-    then give each its Adam optimizer.  Raises unless ``cfg.COMPUTE_DTYPE`` is
-    "float32", the only compute dtype the port takes."""
-    cfg.require_float32("create_train_state")
+    then give each its Adam optimizer.  Parameters and Adam moments stay f32
+    (``PARAM_DTYPE``) at any compute dtype.  Raises on a ``cfg.COMPUTE_DTYPE``
+    the port does not compute in (float16)."""
+    cfg.require_ported_dtype("create_train_state")
     generator, discriminator = generator.to(device), discriminator.to(device)
     opt_g, opt_d = make_optimizers(cfg, generator, discriminator)
     return TrainState(generator, discriminator, opt_g, opt_d)

@@ -10,7 +10,13 @@ It gets the same Philox dropout keys as that iteration's fused passes.
 
 Every random draw (z, the Gumbel noise, the GP's eps, the per-layer dropout
 keys) comes from the ``torch.Generator`` given to the step, on the batch's
-device.
+device.  z is drawn in f32 and cast to the compute dtype on the models'
+entry (the JAX step draws it in the compute dtype: the same values).
+
+Dtypes are the JAX step's: f32 parameters and Adam state, activations in
+``COMPUTE_DTYPE`` (bf16 by default, or f32), losses and metrics in f32, and
+the gradient-penalty critic pass at ``GP_DTYPE`` ("compute", or "float32":
+the same critic's parameters run with f32 activations).
 
 The eval step (``make_eval_step``) is the JAX package's validation step: a
 deterministic generator forward with its hourglass fused
@@ -54,14 +60,17 @@ def make_train_step(cfg: Configuration, state: TrainState) -> Callable:
     ``state.opt_d`` in place and counts ``state.step``; it returns only the
     metrics, as detached tensors on the batch's device.  The batch must be on
     the modules' device (``create_train_state`` puts them on the card unless
-    asked for the CPU); another raises.  So does a ``cfg.COMPUTE_DTYPE`` other
-    than "float32".
+    asked for the CPU); another raises.  So does a ``cfg.COMPUTE_DTYPE`` the port
+    does not compute in (float16).
     """
-    cfg.require_float32("make_train_step")
+    cfg.require_ported_dtype("make_train_step")
     gen, disc = state.generator, state.discriminator
     model_device = next(gen.parameters()).device
     n_gen_layers = len(gen.encoder.channels)
     n_disc_layers = len(disc.encoder.channels)
+    # the GP critic: the same critic, with f32 activations under GP_DTYPE "float32"
+    # (building_gan_tpu/train/step.py clones it at f32), else at its own dtype
+    gp_dtype = torch.float32 if cfg.GP_DTYPE == "float32" else None
 
     def generator_forward(batch, planes, generator):
         z = normal_box_muller(tuple(batch.mask.shape) + (cfg.Z_DIM,), generator)
@@ -83,7 +92,8 @@ def make_train_step(cfg: Configuration, state: TrainState) -> Callable:
         d_loss = L.discriminator_loss(
             critic_fused(batch, planes, keys), types_onehot, label_hard, label_soft,
             batch.mask, cfg, eps=eps,
-            d_apply_gp=lambda label: disc(batch, label, deterministic=False, keys=keys),
+            d_apply_gp=lambda label: disc(batch, label, deterministic=False, keys=keys,
+                                          dtype=gp_dtype),
         )
         d_loss.backward()
         state.opt_d.step()
@@ -131,7 +141,7 @@ def make_eval_step(cfg: Configuration, state: TrainState) -> Callable:
     F1 and its histogram and the confusion matrix, as tensors on the batch's
     device.
     """
-    cfg.require_float32("make_eval_step")
+    cfg.require_ported_dtype("make_eval_step")
     gen, disc = state.generator, state.discriminator
     model_device = next(gen.parameters()).device
     packed = {"step": None}

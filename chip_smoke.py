@@ -24,14 +24,22 @@ Phases, one short output line or a few each:
      (ptxas), and for every cluster size that fits the clusters the card
      holds at once (cudaOccupancyMaxActiveClusters) and the time, in turns;
      its device time by layer and by phase (each CTA's %globaltimer at its
-     trace points);
+     trace points); then the serving main path again at the JAX package's
+     default COMPUTE_DTYPE, bfloat16 (the kernel's bf16 storage): the same
+     checks, p50 / p99 and buildings/s beside the f32 figures, and the kernel
+     and its plain bf16 twin timed at bf16;
   6. the training layer's kernels (csrc/gat_train.cu, forward and backward)
      against their plain version at full width on packed real-scale
      buildings (K=6, dropout on, the same Philox keys): the generator stack
      (Cmax 128, 14 layers) and the critic stack (Cmax 64, 6 layers), output
-     and gx / gW / gatt / gvec, each stack whole and each layer alone, on
-     every slot of the train batch; one layer's keep mask read back bit for
-     bit;
+     and gx / gW / gatt / gvec, each stack whole and each layer alone on the
+     kernel's own activations (the stack equal to the chain of layer calls
+     bit for bit), on every slot of the train batch; one layer's keep
+     mask read back bit for bit; then all three kernels with bf16 storage
+     against their plain bf16 twins and f64: the hourglass at the server's
+     shapes (K=1, K=4), both training stacks forward and backward (K=6,
+     dropout on) each layer alone on the kernel's activations, and the
+     generator's two odd-width layers (2 -> 1, 1 -> 2) alone at K=3;
   7. the training main path: 512 real-scale synthetic buildings packed at
      K=6 ("cell" mode), random weights from a seed, 3 WGAN-GP train steps
      (N_CRITIC=5, f32) through train/step.py; losses and metrics finite,
@@ -41,32 +49,49 @@ Phases, one short output line or a few each:
      those masks held bit for bit against ops/dropout.py::keep_mask at the
      step's critic shapes, and the step timed in turns with keep_mask's int64
      Philox patched back into that pass (as before the port drew those masks
-     on the card) and with the kernel;
+     on the card) and with the kernel; then 3 steps at the JAX package's
+     defaults (COMPUTE_DTYPE bfloat16, GP_DTYPE "compute") with the same
+     launch checks, one at GP_DTYPE "float32", and the f32 and bf16 steps in
+     turns (ms, real voxel nodes/s, peak device memory);
   8. train-step time and nodes/s, and the stacks' forward and backward
      kernels against their plain versions and their bounds, at the step's
      shapes and trained weights (the kernel stacks also held against the
-     plain stacks in f64 there); each stack's device time by sub-kernel
+     plain version in f64 there, each layer alone on the kernel's
+     activations, and whole at f32); each stack's device time by sub-kernel
      (torch.profiler) and each layer's forward and backward time; the step
      traced with the int64 masks and with the kernel: the int64 kernels must
-     be gone from the kernel path's trace;
+     be gone from the kernel path's trace; the stacks again with bf16
+     storage; the eval step at f32 and at bf16 (its launches, in turns); the
+     bf16 step traced too (device busy share, top kernels);
   9. the trainer: 256 real-scale buildings as raw JSON, then the CLI in
      subprocesses on the card (preprocess; train 2 epochs at the config of
      record with a latest checkpoint each epoch; train again to 3 epochs,
-     which resumes from the latest checkpoint; test); checkpoints, metas and
-     scalar tags checked; then in process a Trainer on that log dir: one eval
-     step and Trainer.generate with their kernel launches counted, generate's
+     which resumes from the latest checkpoint; test), once with
+     --compute-dtype float32 and once at the defaults (bf16); checkpoints,
+     metas and scalar tags checked; then in process a Trainer on the f32 log
+     dir: one eval step and Trainer.generate with their kernel launches
+     counted, generate's
      logits against the plain generator's, one train and one validation
      epoch with their host syncs counted (torch.cuda.set_sync_debug_mode),
      seconds an epoch, ms an eval batch, checkpoint write and resume seconds,
      and the eval step's peak device memory;
-  10. a {"kernels": [...]} line;
+  10. the run's seconds and a {"kernels": [...]} line: each kernel at f32 and
+     at bf16 storage ("dtype"), launches from that dtype's main path;
   11. the server stopped, every thread joined, and the result line last.
 
 Every kernel is held against its plain version run in float64, the gradients
 too, by two rules: its max abs error within 4x the plain float32 version's own,
 plus 1e-4; and its norm-relative error within 4x the plain float32 version's
-own, plus 1e-4.  The training kernels are held so as whole stacks and layer by
-layer, at the train step's 105 slots.
+own, plus 1e-4.  With bf16 storage the plain version is the bf16 twin (f32
+math, the same bf16 roundings) and the f64 reference rounds to bf16 where the
+kernel stores (each layer's output, and gx): the twin's distance from it is
+f32 rounding alone, where it moves a value across a bf16 rounding boundary,
+so the max abs rule also allows one bf16 ulp of the largest value.  The
+training kernels are held so layer by layer on the kernel's own activations,
+at the train step's 105 slots, the stack equal to the chain of layer calls
+bit for bit; at f32 also as whole stacks.  A whole bf16 stack is
+not held by the rules: its rounding flips compound through the narrow
+GraphNorm layers (its distances are printed).
 Parity phases run f32 with TF32 off (torch.backends.cuda.matmul.allow_tf32
 and torch.backends.cudnn.allow_tf32 both False).  Any failure is an uncaught
 exception and a non-zero exit.  Without a CUDA device it exits 1 at once.
@@ -74,6 +99,7 @@ exception and a non-zero exit.  Without a CUDA device it exits 1 at once.
 
 import gc
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -93,6 +119,7 @@ H100_F32_FLOPS = 67e12  # f32 without tensor cores (the kernel uses no TF32)
 ROUNDING_FACTOR, ROUNDING_ATOL = 4.0, 1e-4
 REL_ATOL = 1e-4  # norm-relative error allowed beyond ROUNDING_FACTOR x the plain f32 version's
 LOGITS_ATOL = 1e-3  # fused vs plain generator logits, f32 both
+BF16 = torch.bfloat16
 REQUESTS, CLIENTS, MAX_BATCH = 48, 16, 16
 REQUEST_TIMEOUT_S = 120.0
 
@@ -127,16 +154,17 @@ def timed_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_of(B, R, chans, cmax, K):
+def bound_of(B, R, chans, cmax, K, act_bytes=4):
     """(bound_ms, bound_by, bytes, flops) of one hourglass call on an H100 SXM.
 
-    Bytes: x and out (B, R, cmax) f32, the mask plane, the gid plane when
-    K > 1, and the packed weights, each moved once.  Operations at the real
+    Bytes: x and out (B, R, cmax) at ``act_bytes`` an element (4: f32, 2:
+    bf16), the mask plane, the gid plane when K > 1, and the packed f32
+    weights, each moved once.  Operations at the real
     ci x co widths: the GEMM (2 ci co a row), the two scores (4 co), the
     7-way aggregate (14 co) and GraphNorm statistics and apply (6 co).
     """
     L = len(chans)
-    nbytes = 4 * (2 * B * R * cmax + B * R * (2 if K > 1 else 1) + L * cmax * (cmax + 6))
+    nbytes = act_bytes * 2 * B * R * cmax + 4 * (B * R * (2 if K > 1 else 1) + L * cmax * (cmax + 6))
     flops = sum(B * R * (2 * ci * co + 24 * co) for ci, co in chans)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
@@ -148,39 +176,54 @@ GRAD_NAMES = ("gx", "gW", "gatt", "gvec")
 DROPOUT_RATE = 0.2
 
 
+def bf16_ulp(t) -> float:
+    """One bf16 ulp (8 significant bits) at the largest |value| of t."""
+    m = t.abs().max().item()
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
 def f64_rule(got, want, want64):
     """Hold one kernel output against its plain version run in f64, by two rules.
 
-    Max abs: |kernel - f64| <= ROUNDING_FACTOR * |plain f32 - f64| + ROUNDING_ATOL.
+    The plain version is the kernel's twin at its storage dtype: f32, or the
+    bf16 twin (f32 math, the same bf16 roundings).  At bf16 the f64 reference
+    takes the same bf16 inputs and rounds to bf16 where the kernel stores
+    (``Bf16Store``), so the twin's distance from it is f32 rounding alone.
+    Max abs: |kernel - f64| <= ROUNDING_FACTOR * |plain - f64| + ROUNDING_ATOL,
+    plus, for an output stored in bf16, one bf16 ulp of the largest value:
+    where f32 rounding moves a value across a bf16 rounding boundary the
+    stored value moves by one ulp, in the kernel or the twin or neither.
     Norm-relative: ||kernel - f64|| / ||f64|| <= ROUNDING_FACTOR * (the same of
-    plain f32) + REL_ATOL; a few cells where f32 rounding flips a ReLU barely
-    move it, a missing or wrong term does.  Returns (ok, report, kernel's max
-    abs error against f64).
+    plain) + REL_ATOL; a few cells where f32 rounding flips a ReLU (or a bf16
+    rounding) barely move it, a missing or wrong term does.  Returns (ok,
+    report, kernel's max abs error against f64).
     """
     g64, p64 = got.double(), want.double()
-    err = (got - want).abs().max().item()
+    err = (got.double() - p64).abs().max().item()
     err_k64 = (g64 - want64).abs().max().item()
     err_p64 = (p64 - want64).abs().max().item()
-    limit = ROUNDING_FACTOR * err_p64 + ROUNDING_ATOL
+    limit = ROUNDING_FACTOR * err_p64 + ROUNDING_ATOL + (bf16_ulp(want64) if want.dtype == BF16 else 0.0)
     norm = max(want64.norm().item(), 1e-300)
     rel_k = (g64 - want64).norm().item() / norm
     rel_p = (p64 - want64).norm().item() / norm
     rel_limit = ROUNDING_FACTOR * rel_p + REL_ATOL
     ok = bool(torch.isfinite(got).all().item()) and err_k64 <= limit and rel_k <= rel_limit
-    report = (f"(max |f64| {want64.abs().max().item():.3e}): vs plain f32 {err:.3e}; vs f64 max abs: "
-              f"kernel {err_k64:.3e}, plain f32 {err_p64:.3e}, limit {limit:.3e}; norm-relative: "
-              f"kernel {rel_k:.2e}, plain f32 {rel_p:.2e}, limit {rel_limit:.2e} "
+    pl = "plain " + ("f32" if want.dtype == torch.float32 else str(want.dtype).replace("torch.", ""))
+    report = (f"(max |f64| {want64.abs().max().item():.3e}): vs {pl} {err:.3e}; vs f64 max abs: "
+              f"kernel {err_k64:.3e}, {pl} {err_p64:.3e}, limit {limit:.3e}; norm-relative: "
+              f"kernel {rel_k:.2e}, {pl} {rel_p:.2e}, limit {rel_limit:.2e} "
               f"{'ok' if ok else 'FAIL'}")
     return ok, report, err_k64
 
 
-def train_bound(B, R, chans, cmax, backward, dropout):
+def train_bound(B, R, chans, cmax, backward, dropout, act_bytes=4):
     """(bound_ms, bound_by, bytes, ops) of one training stack pass (one launch a layer).
 
     Summed over the layers.  Bytes the layer function must move, once each:
     forward, x (ci channels) and the planes (8 floats a row) and the packed
     weights in, y (cmax) out; backward, x, gy (co), the planes and the weights
-    in, gx (cmax) and the weight grads out.  What the kernels save in the
+    in, gx (cmax) and the weight grads out; the activations x, y, gy and gx at
+    ``act_bytes`` an element (4: f32, 2: bf16), the rest f32.  What the kernels save in the
     forward for the backward is their design, not the function's, and is not
     counted.  Operations at the real ci x co widths: 2 ci co a row forward
     and 4 ci co backward, plus the elementwise work (28 co + 40 a row forward,
@@ -193,10 +236,10 @@ def train_bound(B, R, chans, cmax, backward, dropout):
     for ci, co in chans:
         rng = 100 * co if dropout else 0
         if backward:
-            nbytes += 4 * rows * (co + cmax + ci + 8) + 2 * wbytes
+            nbytes += rows * (act_bytes * (co + cmax + ci) + 4 * 8) + 2 * wbytes
             flops += rows * (4 * ci * co + 50 * co + 40 + rng)
         else:
-            nbytes += 4 * rows * (ci + cmax + 8) + wbytes
+            nbytes += rows * (act_bytes * (ci + cmax) + 4 * 8) + wbytes
             flops += rows * (2 * ci * co + 28 * co + 40 + rng)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
@@ -250,13 +293,36 @@ def with_grads(fn, leaves, gy):
     return y.detach(), torch.autograd.grad(y, leaves, gy)
 
 
-def stack_fns(planes, keys, grid, K, chans):
+class Bf16Store(torch.autograd.Function):
+    """Identity that rounds to bf16 and back, forward and backward: in an f64
+    reference, where a bf16 kernel stores (a layer's output; its gx)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(BF16).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(BF16).to(g.dtype)
+
+
+def stores(storage):
+    """t -> t as a kernel with ``storage`` activations stores it: a wider t rounded
+    to bf16 both ways at bf16 storage (``Bf16Store``), else t itself."""
+    if storage != BF16:
+        return lambda t: t
+    return lambda t: t if t.dtype == BF16 else Bf16Store.apply(t)
+
+
+def stack_fns(planes, keys, grid, K, chans, storage=torch.float32):
     """(kernel stack, plain stack) as functions of (x, Ws, atts, vecs), dropout on.
 
     The plain stack keeps one layer's autograd graph alive at a time
     (torch.utils.checkpoint recomputes each layer in the backward), so it runs
     in f64 at the step's 105 slots; the dropout masks are keyed, so the
-    recomputation draws the same bits.
+    recomputation draws the same bits.  Its input and each layer's output
+    pass through ``stores(storage)``: an f64 run rounds where a kernel with
+    ``storage`` activations stores.
     """
     from torch.utils.checkpoint import checkpoint
 
@@ -264,15 +330,17 @@ def stack_fns(planes, keys, grid, K, chans):
     from building_gan_torch.ops import gat_train as gt
 
     levels = drop.drop_levels(DROPOUT_RATE)
+    store = stores(storage)
 
     def fused(x, Ws, atts, vecs):
         return gt.hourglass_train(x, planes, Ws, atts, vecs, keys, grid, K, DROPOUT_RATE, False,
                                   chans=chans)
 
     def plain(x, Ws, atts, vecs):
+        x = store(x)
         for l in range(Ws.shape[0]):
-            x = checkpoint(gt.layer_plain, x, planes, Ws[l], atts[l], vecs[l], keys[l], grid, K,
-                           levels, use_reentrant=False)
+            x = store(checkpoint(gt.layer_plain, x, planes, Ws[l], atts[l], vecs[l], keys[l], grid,
+                                 K, levels, use_reentrant=False))
         return x
 
     return fused, plain
@@ -325,13 +393,108 @@ def hold(label, names, got, want, want64):
     return worst
 
 
+def hold_chain(label, x, gy, planes, weights, keys, grid, K, chans, layers, stack=None):
+    """The kernel's ``layers`` each alone on the kernel's own activations, by both f64
+    rules: forward on the kernel's output of the layer below (x for the first),
+    backward on gy.  One layer does not compound rounding, so both rules are
+    tight there at either storage type (x's; at bf16 the f64 reference rounds
+    where the kernel stores, ``stores``); the references take the kernel's
+    branches.  ``stack``: (y, grads) of the kernel stack over every layer on (x,
+    weights) and gy, which must equal bit for bit the chain of layer calls, each
+    layer's backward fed the kernel's gx of the layer above.  Raises on a
+    failure; returns (fwd err, bwd err), the kernel's largest max abs errors
+    against f64.
+    """
+    from building_gan_torch.ops import dropout as drop
+    from building_gan_torch.ops import gat_train as gt
+
+    Ws, atts, vecs = weights
+    levels = drop.drop_levels(DROPOUT_RATE)
+    store = stores(x.dtype)
+    xs = {layers[0]: x}
+    with torch.no_grad():
+        for l in layers:
+            xs[l + 1] = gt.fused_layer(xs[l], planes, Ws[l], atts[l], vecs[l], keys[l], grid,
+                                       *chans[l], K, levels)
+    fwd_err = bwd_err = 0.0
+    worst, flips, g, kgrads, same = {}, [0, 0], gy, {}, True
+    for l in reversed(layers):
+        ci, co = chans[l]
+        leaves = (xs[l], Ws[l], atts[l], vecs[l])
+        branches, n_relu, n_leaky = kernel_branches(leaves, planes, keys[l], grid, ci, co, K, levels)
+        flips = [flips[0] + n_relu, flips[1] + n_leaky]
+
+        def one(x_, W_, a_, v_):
+            return gt.fused_layer(x_, planes, W_, a_, v_, keys[l], grid, ci, co, K, levels)
+
+        def one_plain(x_, W_, a_, v_):
+            return store(gt.layer_plain(store(x_), planes, W_, a_, v_, keys[l], grid, K, levels,
+                                        branches=branches))
+
+        got = with_grads(one, leaves, gy)
+        want = with_grads(one_plain, leaves, gy)
+        want64 = with_grads(one_plain, [t.double() for t in leaves], gy.double())
+        torch.cuda.synchronize()
+        if got[0].dtype != x.dtype or got[1][0].dtype != x.dtype:
+            raise AssertionError(f"{label} layer {l}: y / gx {got[0].dtype} / {got[1][0].dtype}, "
+                                 f"expected {x.dtype}")
+        same = same and torch.equal(got[0], xs[l + 1])
+        for what, a, b, c in zip(("y",) + GRAD_NAMES, [got[0], *got[1]],
+                                 [want[0], *want[1]], [want64[0], *want64[1]]):
+            ok, report, err_k64 = f64_rule(a, b, c)
+            if not ok:
+                say(f"{label} layer {l} ({ci} -> {co}) {what} {report}")
+                raise AssertionError(f"gat_train kernel disagrees with its plain version: "
+                                     f"{label} layer {l} {what}")
+            rel = (a.double() - c).norm().item() / max(c.norm().item(), 1e-300)
+            of_max = err_k64 / max(c.abs().max().item(), 1e-300)
+            w = worst.get(what, (0.0, 0.0, 0.0))
+            worst[what] = (max(w[0], err_k64), max(w[1], rel), max(w[2], of_max))
+            if what == "y":
+                fwd_err = max(fwd_err, err_k64)
+            else:
+                bwd_err = max(bwd_err, err_k64)
+        del got, want, want64, branches
+        if stack is not None:  # the chain's backward: the kernel's gx of the layer above
+            _, (g, *kgrads[l]) = with_grads(one, leaves, g)
+    if stack is not None:
+        y_s, (gx_s, *gw_s) = stack
+        same = (same and torch.equal(y_s, xs[layers[-1] + 1]) and torch.equal(gx_s, g)
+                and all(torch.equal(a[l], b) for l in layers for a, b in zip(gw_s, kgrads[l])))
+    if not same:
+        raise AssertionError(f"{label}: the kernel stack or a repeated layer call differs from "
+                             "the chain of layer calls")
+    del xs, kgrads
+    torch.cuda.empty_cache()
+    dt = str(x.dtype).replace("torch.", "")
+    say(f"{label}, {dt}: each of layers {layers[0]}-{layers[-1]} alone on the kernel's own "
+        f"activations ({x.shape[0]} slots, K={K}) within both rules"
+        + (", the stack's output and gradients equal to the chain of layer calls' bit for bit"
+           if stack else "")
+        + f"; the references take the kernel's branches (it took the other branch than f64 at "
+        f"{flips[0]} ReLU and {flips[1]} LeakyReLU arguments); worst kernel vs f64 (max abs, "
+        "norm-relative, max abs / max |f64|): "
+        + ", ".join(f"{k} {a:.2e} {r:.2e} {q:.2e}" for k, (a, r, q) in worst.items()))
+    return fwd_err, bwd_err
+
+
+def distances(label, got, want, want64):
+    """Print, and hold nothing: a whole bf16 stack's norm-relative distances, kernel vs
+    its twin, twin vs f64 with the stores, kernel vs f64, for y and the grads."""
+    rel = lambda a, b: ((a.double() - b.double()).norm() / b.double().norm()).item()  # noqa: E731
+    say(f"{label}, whole stack (not held; held layer by layer below), norm-relative kernel vs twin "
+        "/ twin vs f64 / kernel vs f64: " + ", ".join(
+            f"{k} {rel(a, b):.2e} / {rel(b, c):.2e} / {rel(a, c):.2e}" for k, a, b, c in zip(
+                ("y",) + GRAD_NAMES, [got[0], *got[1]], [want[0], *want[1]],
+                [want64[0], *want64[1]])))
+
+
 def check_train_kernels(batch, dev):
     """Training kernels vs plain at full width on every slot of the train batch.
 
     For the generator stack (Cmax 128, 14 layers) and the critic stack (Cmax
-    64, 6 layers): the whole stack, then each layer on its own input from the
-    kernel stack (one layer does not compound f32 rounding, so both rules are
-    tight there).  Returns (fwd err, bwd err), the kernel's largest max abs
+    64, 6 layers): the whole stack, then each layer on the kernel's own
+    activations (``hold_chain``).  Returns (fwd err, bwd err), the kernel's largest max abs
     errors against f64.
     """
     from building_gan_torch.ops import dropout as drop
@@ -358,52 +521,11 @@ def check_train_kernels(batch, dev):
         torch.cuda.synchronize()
         fwd_err = max(fwd_err, hold(label, ("y",), got[:1], want[:1], want64[:1]))
         bwd_err = max(bwd_err, hold(label, GRAD_NAMES, got[1], want[1], want64[1]))
-        del got, want, want64
-
-        # each layer alone, on the kernel stack's own activations
-        xs = [x]
-        with torch.no_grad():
-            for l, (ci, co) in enumerate(chans):
-                xs.append(gt.fused_layer(xs[-1], planes, Ws[l], atts[l], vecs[l], keys[l], grid,
-                                         ci, co, K, levels))
-        worst, flips = {}, [0, 0]
-        for l, (ci, co) in enumerate(chans):
-            leaves = (xs[l], Ws[l], atts[l], vecs[l])
-            branches, n_relu, n_leaky = kernel_branches(leaves, planes, keys[l], grid, ci, co, K, levels)
-            flips = [flips[0] + n_relu, flips[1] + n_leaky]
-
-            def one(x_, W_, a_, v_):
-                return gt.fused_layer(x_, planes, W_, a_, v_, keys[l], grid, ci, co, K, levels)
-
-            def one_plain(x_, W_, a_, v_):
-                return gt.layer_plain(x_, planes, W_, a_, v_, keys[l], grid, K, levels,
-                                      branches=branches)
-
-            got = with_grads(one, leaves, gy)
-            want = with_grads(one_plain, leaves, gy)
-            want64 = with_grads(one_plain, [t.double() for t in leaves], gy.double())
-            torch.cuda.synchronize()
-            for what, a, b, c in zip(("y",) + GRAD_NAMES, [got[0], *got[1]],
-                                     [want[0], *want[1]], [want64[0], *want64[1]]):
-                ok, report, err_k64 = f64_rule(a, b, c)
-                if not ok:
-                    say(f"train kernel {name} layer {l} ({ci} -> {co}) {what} {report}")
-                    raise AssertionError(f"gat_train kernel disagrees with its plain version: "
-                                         f"{name} layer {l} {what}")
-                rel = (a.double() - c).norm().item() / max(c.norm().item(), 1e-300)
-                w = worst.get(what, (0.0, 0.0))
-                worst[what] = (max(w[0], err_k64), max(w[1], rel))
-                if what == "y":
-                    fwd_err = max(fwd_err, err_k64)
-                else:
-                    bwd_err = max(bwd_err, err_k64)
-            del got, want, want64, branches
-        say(f"train kernel {name}: each of {len(chans)} layers alone ({B} slots) within both rules, "
-            f"the references taking the kernel's branches (it took the other branch than f64 at "
-            f"{flips[0]} ReLU and {flips[1]} LeakyReLU arguments); worst kernel vs f64 (max abs, "
-            "norm-relative): " + ", ".join(f"{k} {a:.2e} {r:.2e}" for k, (a, r) in worst.items()))
-        del xs
-        torch.cuda.empty_cache()
+        del want, want64
+        errs = hold_chain(f"train kernel {name}", x, gy, planes, (Ws, atts, vecs), keys, grid, K,
+                          chans, range(len(chans)), stack=got)
+        fwd_err, bwd_err = max(fwd_err, errs[0]), max(bwd_err, errs[1])
+        del got
 
         if name == "generator":  # one layer's keep mask, read back from its output
             ci, co = chans[0]
@@ -428,8 +550,97 @@ def check_train_kernels(batch, dev):
     return fwd_err, bwd_err
 
 
-def train_phase(cfg, batch, dev):
-    """The training main path: TRAIN_STEPS steps at full width; -> (state, step ms, launches)."""
+def hourglass_stored64(x, mask, Ws, atts, vecs, chans, gid, K):
+    """The plain hourglass in f64 on bf16 x, a layer at a time, each layer's output
+    rounded to bf16 as the bf16 kernel stores it: its f64 reference."""
+    from building_gan_torch.ops import hourglass as hg
+
+    y = x.double()
+    for l in range(len(chans)):
+        y = hg.hourglass_plain(y, mask, Ws[l:l + 1].double(), atts[l:l + 1].double(),
+                               vecs[l:l + 1].double(), chans[l:l + 1], gid, K).to(BF16).double()
+    return y
+
+
+def check_bf16_kernels(batch, hg_inputs, dev):
+    """The three kernels with bf16 storage at full width, each against its plain bf16
+    twin (the same roundings, f32 math) and the plain version run in f64 on the same
+    bf16 inputs, rounded where the kernel stores, by the f64 rules.
+
+    The serving hourglass at the server's shapes (K = 1 and K = 4); the generator
+    (Cmax 128, 14 layers) and critic (Cmax 64, 6 layers) training stacks on every
+    slot of the train batch (K = 6, dropout on), forward and gx / gW / gatt / gvec,
+    each layer on the kernel's own activations (``hold_chain``; the whole stack's
+    distances printed, not held); then the generator stack's two odd-width layers
+    (2 -> 1, 1 -> 2) alone at K = 3, whose bf16 rows are 2 and 4 bytes.
+    Returns {kernel: largest max abs error against f64}.
+    """
+    from building_gan_torch.ops import dropout as drop
+    from building_gan_torch.ops import gat_train as gt
+    from building_gan_torch.ops import hourglass as hg
+
+    errs = {"hourglass_fwd": 0.0, "gat_train_fwd": 0.0, "gat_train_bwd": 0.0}
+    x_hg, masks, Ws, atts, vecs, chans = hg_inputs
+    for K, mask, gid in masks:
+        args = (x_hg.to(BF16), mask, Ws, atts, vecs, chans, gid, K)
+        got = hg.hourglass_cuda(*args)
+        twin = hg.hourglass_plain(*args)
+        want64 = hourglass_stored64(*args)
+        torch.cuda.synchronize()
+        if got.dtype != BF16:
+            raise AssertionError(f"the bf16 hourglass returned {got.dtype}")
+        ok, report, err = f64_rule(got, twin, want64)
+        say(f"bf16 kernel hourglass K={K} ({x_hg.shape[0]} slots; plain = the bf16 twin) {report}")
+        if not ok:
+            raise AssertionError(f"bf16 hourglass kernel disagrees with its plain version at K={K}")
+        errs["hourglass_fwd"] = max(errs["hourglass_fwd"], err)
+        del got, twin, want64
+
+    grid, K = batch.grid_shape, batch.graphs_per_slot
+    planes = gt.build_planes(batch.mask, batch.gid, grid)
+    B, R = planes.shape[:2]
+    gen = torch.Generator().manual_seed(31)
+    kgen = torch.Generator(device=dev).manual_seed(32)
+    for name, hidden, repeat in (("generator", 128, 7), ("critic", 64, 3)):
+        weights, tchans = perturbed_stack(hidden, repeat, gen, dev)
+        keys = drop.draw_keys(len(tchans), kgen)
+        x = torch.randn(B, R, hidden, generator=gen).to(dev, BF16)
+        gy = torch.randn(B, R, hidden, generator=gen).to(dev, BF16)
+        fused, plain = stack_fns(planes, keys, grid, K, tchans, BF16)
+        leaves = (x, *weights)
+        label = (f"bf16 train kernel {name} stack (Cmax {hidden}, {len(tchans)} layers, K={K}, "
+                 f"{B} slots; plain = the bf16 twin)")
+        got = with_grads(fused, leaves, gy)
+        if got[0].dtype != BF16 or got[1][0].dtype != BF16:
+            raise AssertionError(f"the bf16 {name} stack returned {got[0].dtype} / {got[1][0].dtype}")
+        want = with_grads(plain, leaves, gy)
+        want64 = with_grads(plain, [t.double() for t in leaves], gy.double())
+        torch.cuda.synchronize()
+        distances(label, got, want, want64)
+        del want, want64
+        torch.cuda.empty_cache()
+        layer_errs = [hold_chain(f"bf16 train kernel {name}", x, gy, planes, weights, keys, grid, K,
+                                 tchans, range(len(tchans)), stack=got)]
+        del got
+        if name == "generator":
+            # the odd widths at K = 3: the 2 -> 1 and 1 -> 2 layers, gid folded to 3 keys; the
+            # first one's input zero beyond its 2 channels, as a stack hands it over (the
+            # kernel reads x[:, :ci] only; the plain GEMM would take a gW row from the rest)
+            xl = torch.zeros_like(x)
+            xl[..., :tchans[6][0]] = x[..., :tchans[6][0]]
+            layer_errs.append(hold_chain(
+                "bf16 train kernel odd width: generator", xl, gy,
+                gt.build_planes(batch.mask, batch.gid % 3, grid), weights, keys, grid, 3, tchans,
+                range(6, 8)))
+        for fe, be in layer_errs:
+            errs["gat_train_fwd"] = max(errs["gat_train_fwd"], fe)
+            errs["gat_train_bwd"] = max(errs["gat_train_bwd"], be)
+    return errs
+
+
+def train_phase(cfg, batch, dev, steps=TRAIN_STEPS):
+    """The training main path: ``steps`` steps at full width at the config's dtypes;
+    -> (state, step ms, launches).  The launch counts are set to 0 first."""
     from building_gan_torch.models.grid_models import GridVoxelGNNDiscriminator, GridVoxelGNNGenerator
     from building_gan_torch.ops import gat_train as gt
     from building_gan_torch.ops import hourglass as hg
@@ -448,7 +659,8 @@ def train_phase(cfg, batch, dev):
     for c in (gt.fwd_launches, gt.bwd_launches, gt.bytes_launches, hg.launches):
         c.reset()
     peak = []
-    for i in range(TRAIN_STEPS):
+    tag = f"{cfg.COMPUTE_DTYPE}, GP {cfg.GP_DTYPE}"
+    for i in range(steps):
         f0, b0, d0 = gt.fwd_launches.value, gt.bwd_launches.value, gt.bytes_launches.value
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -459,7 +671,7 @@ def train_phase(cfg, batch, dev):
         peak.append(torch.cuda.max_memory_allocated(dev) / 2**30)
         got = (gt.fwd_launches.value - f0, gt.bwd_launches.value - b0, gt.bytes_launches.value - d0)
         bad = [k for k, v in m.items() if not torch.isfinite(v).all().item()]
-        say(f"train step {i + 1}: {step_ms[-1]:.1f} ms, g_loss {m['g_loss'].item():.5f}, "
+        say(f"train step {i + 1} ({tag}): {step_ms[-1]:.1f} ms, g_loss {m['g_loss'].item():.5f}, "
             f"d_loss {m['d_loss'].item():.5f}, f1 {m['f1'].item():.4f}, f1_min {m['f1_min'].item():.4f}, "
             f"accuracy {m['accuracy'].item():.4f}; layer launches fwd {got[0]} bwd {got[1]}, "
             f"dropout-byte launches {got[2]} (expect {want[0]} / {want[1]} / {want[2]}); peak device "
@@ -474,11 +686,68 @@ def train_phase(cfg, batch, dev):
     return state, step_ms, launches
 
 
-def time_train_stacks(state, batch, dev, card):
+def dtype_turns(runs, batch, dev, card):
+    """Train steps of each {dtype: (cfg, state)} in turns (f32, bf16, bf16, f32, twice): ms on
+    the host clock between synchronisations, real voxel nodes/s and peak device memory."""
+    from building_gan_torch.train.step import make_train_step
+
+    steps = {dt: make_train_step(cfg, st) for dt, (cfg, st) in runs.items()}
+    g = torch.Generator(device=dev).manual_seed(13)
+    ms, peak = {dt: [] for dt in runs}, {dt: 0.0 for dt in runs}
+    for dt in ("float32", "bfloat16", "bfloat16", "float32") * 2:
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, t = wall_ms(lambda: steps[dt](batch, g))
+        ms[dt].append(t)
+        peak[dt] = max(peak[dt], torch.cuda.max_memory_allocated(dev) / 2**30)
+    n_real = int(batch.mask.sum().item())
+    for dt, v in ms.items():
+        med = float(np.median(v))
+        say(f"train in turns ({dt}): steps {' '.join(f'{t:.1f}' for t in v)} ms, median {med:.1f} "
+            f"ms, {n_real / (med / 1e3):.1f} real voxel nodes/s, peak device memory {peak[dt]:.3f} GiB "
+            f"on {card}")
+    return ms, peak
+
+
+def eval_turns(runs, batch, dev, card):
+    """The eval step of each {dtype: (cfg, state)} on the train batch: its kernel launches
+    (one hourglass, the critic's layers forward), finite metrics, and CUDA-event ms in
+    turns (f32, bf16, bf16, f32)."""
+    from building_gan_torch.ops import gat_train as gt
+    from building_gan_torch.ops import hourglass as hg
+    from building_gan_torch.train.step import make_eval_step
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    evals, times = {}, {dt: [] for dt in runs}
+    for dt, (cfg, st) in runs.items():
+        evals[dt] = make_eval_step(cfg, st)
+        h0, f0 = hg.launches.value, gt.fwd_launches.value
+        m = evals[dt](batch, g)
+        torch.cuda.synchronize()
+        got = (hg.launches.value - h0, gt.fwd_launches.value - f0)
+        want = (1, len(st.discriminator.encoder.channels))
+        bad = [k for k, v in m.items() if not torch.isfinite(v).all().item()]
+        say(f"eval step ({dt}, {batch.mask.shape[0]} slots): launches hourglass {got[0]}, training "
+            f"forward {got[1]} (expect {want[0]} and {want[1]}); g_loss {m['g_loss'].item():.5f}, f1 "
+            f"{m['f1'].item():.4f}")
+        if got != want or bad:
+            raise AssertionError(f"eval step ({dt}): launches {got}, non-finite {bad}")
+    for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+        times[dt].append(timed_ms(lambda: evals[dt](batch, g), 3))
+    say("eval step ms in turns (CUDA events, 3 calls): " + ", ".join(
+        f"{dt} {' '.join(f'{t:.2f}' for t in v)}" for dt, v in times.items()) + f" on {card}")
+    return times
+
+
+def time_train_stacks(state, batch, dev, card, act_dtype=torch.float32):
     """Forward and backward of the generator and critic stacks at the step's shapes, in turns.
 
-    With the step's trained weights, the kernel stack's output and gradients
-    are also held against the plain stack's, run in f64, by both rules.
+    With the step's trained weights, the kernel stack is also held against the
+    plain version run in f64 by both rules: each layer on the kernel's own
+    activations, the stack equal to the chain of layer calls bit for bit
+    (``hold_chain``), and at f32 the whole stack too.  The activations (x, y,
+    gy, gx) in ``act_dtype`` (f32, or the bf16 storage, whose plain stack is
+    the bf16 twin and whose f64 reference rounds where the kernel stores);
+    then each stack's sub-kernel and layer times (stack_profile).
     Returns ({stack: {"fwd"/"bwd": (ms, plain ms, bound ms, bound by)}},
     (fwd err, bwd err)).
     """
@@ -497,8 +766,8 @@ def time_train_stacks(state, batch, dev, card):
             Ws, atts, vecs = (t.contiguous() for t in pack_gat_weights(enc))
         cmax, chans = enc.hidden_dim, enc.channel_pairs
         keys = drop.draw_keys(len(chans), gen)
-        x = torch.randn(B, R, cmax, generator=gen, device=dev)
-        gy = torch.randn(B, R, cmax, generator=gen, device=dev)
+        x = torch.randn(B, R, cmax, generator=gen, device=dev).to(act_dtype)
+        gy = torch.randn(B, R, cmax, generator=gen, device=dev).to(act_dtype)
         fused, _ = stack_fns(planes, keys, grid, K, chans)
 
         def plain(x_, W_, a_, v_):  # the whole graph kept, as autograd runs it
@@ -524,28 +793,37 @@ def time_train_stacks(state, batch, dev, card):
         kb2 = timed_ms(lambda: back(yk), 5)
         pb2 = timed_ms(lambda: back(yp), 2)
         got, want = (yk.detach(), gk), (yp.detach(), gp)
-        del yk, yp
+        del yk, yp, gp
         torch.cuda.empty_cache()
-        want64 = with_grads(stack_fns(planes, keys, grid, K, chans)[1], [t.double() for t in leaves],
-                            gy.double())
-        label = f"train stacks at the step's weights: {name} ({len(chans)} layers, Cmax {cmax}, {B} slots)"
-        fwd_err = max(fwd_err, hold(label, ("y",), got[:1], want[:1], want64[:1]))
-        bwd_err = max(bwd_err, hold(label, GRAD_NAMES, got[1], want[1], want64[1]))
-        del got, want, want64, gk, gp, leaves
+        dt = str(act_dtype).replace("torch.", "")
+        if act_dtype == torch.float32:  # a bf16 stack compounds its rounding flips (check_bf16_kernels)
+            want64 = with_grads(stack_fns(planes, keys, grid, K, chans)[1],
+                                [t.double() for t in leaves], gy.double())
+            label = (f"train stacks at the step's weights, {dt}: {name} ({len(chans)} layers, Cmax "
+                     f"{cmax}, {B} slots)")
+            fwd_err = max(fwd_err, hold(label, ("y",), got[:1], want[:1], want64[:1]))
+            bwd_err = max(bwd_err, hold(label, GRAD_NAMES, got[1], want[1], want64[1]))
+            del want64
+        del want, leaves
         torch.cuda.empty_cache()
-        fb = train_bound(B, R, chans, cmax, False, True)
-        bb = train_bound(B, R, chans, cmax, True, True)
+        errs = hold_chain(f"train stacks at the step's weights: {name}", x, gy, planes,
+                          (Ws, atts, vecs), keys, grid, K, chans, range(len(chans)), stack=got)
+        fwd_err, bwd_err = max(fwd_err, errs[0]), max(bwd_err, errs[1])
+        del got, gk
+        act_bytes = torch.finfo(act_dtype).bits // 8
+        fb = train_bound(B, R, chans, cmax, False, True, act_bytes)
+        bb = train_bound(B, R, chans, cmax, True, True, act_bytes)
         kf, kb = (kf1 + kf2) / 2, (kb1 + kb2) / 2
-        say(f"time: {name} stack ({len(chans)} layers, Cmax {cmax}, {B} slots) forward: kernel "
+        say(f"time: {name} stack, {dt} ({len(chans)} layers, Cmax {cmax}, {B} slots) forward: kernel "
             f"{kf1:.3f}/{kf2:.3f} ms, plain {pf1:.3f}/{pf2:.3f} ms, bound {fb[0]:.4f} ms ({fb[1]}), "
             f"{100 * fb[0] / kf:.2f}% of bound on {card}")
-        say(f"time: {name} stack backward: kernel {kb1:.3f}/{kb2:.3f} ms, plain {pb1:.3f}/{pb2:.3f} ms, "
+        say(f"time: {name} stack, {dt}, backward: kernel {kb1:.3f}/{kb2:.3f} ms, plain {pb1:.3f}/{pb2:.3f} ms, "
             f"bound {bb[0]:.4f} ms ({bb[1]}), {100 * bb[0] / kb:.2f}% of bound; bytes fwd {fb[2]} "
             f"bwd {bb[2]}, ops fwd {fb[3]} bwd {bb[3]}")
         out[name] = {"fwd": (kf, (pf1 + pf2) / 2, fb[0], fb[1]),
                      "bwd": (kb, (pb1 + pb2) / 2, bb[0], bb[1])}
         with torch.no_grad():
-            stack_profile(name, planes, Ws, atts, vecs, keys, grid, K, chans, x, gy)
+            stack_profile(f"{name} ({dt})", planes, Ws, atts, vecs, keys, grid, K, chans, x, gy)
         torch.cuda.empty_cache()
     return out, (fwd_err, bwd_err)
 
@@ -902,6 +1180,66 @@ def epoch_lines(out):
     return got
 
 
+def cli_flow(common, run, tag, card):
+    """The CLI on the card with the flags ``common``: train 2 epochs (checkpoints, metas
+    and the reference tags checked), train to 3 (a resume from the latest checkpoint),
+    test; every loss and score finite."""
+    import os
+    import re
+
+    from building_gan_torch.checkpoint import ckpt
+    from building_gan_torch.train.writer import JSONL_FILE, read_jsonl
+
+    out, s_train = run_cli(["train", "--epochs", "2"] + common, "train --epochs 2")
+    epochs = epoch_lines(out)
+    times = [(f, float(x)) for f, x in re.findall(r"function (\w+) took ([\d.e-]+) seconds", out)]
+    writer_line = next((ln for ln in out.splitlines() if ln.startswith("Scalar log:")), "")
+    say(f"trainer ({tag}): CLI train --epochs 2 {s_train:.1f} s (process included); {writer_line}")
+    for e, vals in sorted(epochs.items()):
+        say(f"trainer ({tag}): epoch {e}: " + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()))
+    if sorted(epochs) != [1, 2]:
+        raise AssertionError(f"train ran epochs {sorted(epochs)}, expected [1, 2]")
+    if not all(np.isfinite(v) for vals in epochs.values() for v in vals.values()):
+        raise AssertionError("a loss or score of the CLI's training is not finite")
+    for f, m, keys in ((ckpt.STATE_FILE, ckpt.META_FILE, META_KEYS),
+                       (ckpt.LATEST_STATE_FILE, ckpt.LATEST_META_FILE, LATEST_META_KEYS)):
+        meta = ckpt.read_meta(run, f, m)
+        if meta is None or set(meta) != set(keys):
+            raise AssertionError(f"{f} / {m}: meta {meta}, expected the keys {keys}")
+    if os.path.exists(os.path.join(run, JSONL_FILE)):
+        scalars = {(r["tag"], r["step"]) for r in read_jsonl(run) if r["kind"] == "scalar"}
+        missing = [(t, e) for t in REFERENCE_TAGS for e in (1, 2) if (t, e) not in scalars]
+    else:  # tensorboardX's event file: the tags are in its bytes
+        blob = b"".join(open(os.path.join(run, f), "rb").read() for f in os.listdir(run)
+                        if f.startswith("events.out.tfevents"))
+        missing = [t for t in REFERENCE_TAGS if t.encode() not in blob]
+    if missing:
+        raise AssertionError(f"scalar log lacks {missing[:5]}")
+    step2 = torch.load(os.path.join(run, ckpt.LATEST_STATE_FILE), weights_only=True)["step"]
+    say(f"trainer ({tag}): states.pt, states_latest.pt and both metas written with the JAX package's "
+        f"keys; the 14 reference tags logged for epochs 1-2; step count {step2}")
+
+    out, s_resume = run_cli(["train", "--epochs", "3"] + common, "train --epochs 3")
+    epochs = epoch_lines(out)
+    step3 = torch.load(os.path.join(run, ckpt.LATEST_STATE_FILE), weights_only=True)["step"]
+    resumed = "Loaded latest states" in out
+    say(f"trainer ({tag}): CLI train --epochs 3 {s_resume:.1f} s: resumed from the latest states: "
+        f"{resumed}; ran epochs {sorted(epochs)}; step count {step2} -> {step3}")
+    times += [(f, float(x)) for f, x in re.findall(r"function (\w+) took ([\d.e-]+) seconds", out)]
+    if not resumed or sorted(epochs) != [3] or step3 != step2 + step2 // 2:
+        raise AssertionError("the resumed run did not continue from the latest checkpoint")
+
+    out, s_test = run_cli(["test"] + common, "test")
+    test = {k: float(v) for k, v in re.findall(r"(\w+_test): (\S+)", out)}
+    say(f"trainer ({tag}): CLI test {s_test:.1f} s: " + ", ".join(f"{k} {v:.4f}" for k, v in test.items()))
+    if set(test) != set(TEST_METRICS) or not all(np.isfinite(v) for v in test.values()):
+        raise AssertionError(f"test printed {test}")
+    for f in ("_train_each_epoch", "_validate_each_epoch"):
+        ts = [x for g, x in times if g == f]
+        say(f"trainer ({tag}): {f} seconds (CLI runs, epochs 1-3, the first pays the set-up): "
+            + ", ".join(f"{x:.3f}" for x in ts) + f" on {card}")
+
+
 def trainer_phase(dev, card):
     """The trainer slice on the card: the CLI in subprocesses, then a Trainer in process.
 
@@ -909,7 +1247,6 @@ def trainer_phase(dev, card):
     generate, one train and one validation epoch)."""
     import math
     import os
-    import re
     import shutil
     import tempfile
 
@@ -921,7 +1258,6 @@ def trainer_phase(dev, card):
     from building_gan_torch.ops import hourglass as hg
     from building_gan_torch.ops.rng import normal_box_muller
     from building_gan_torch.train.trainer import Trainer
-    from building_gan_torch.train.writer import JSONL_FILE, read_jsonl
 
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="bgt_trainer_")
@@ -935,55 +1271,13 @@ def trainer_phase(dev, card):
         common = ["--save-data-path", npz, "--log-dir", run, "--device", "cuda", "--compute-dtype",
                   "float32", "--slot-graphs", str(TRAINER_SLOT_GRAPHS), "--grid-local-nodes",
                   str(local_nodes), "--ckpt-latest-interval", "1"]
-
-        out, s_train = run_cli(["train", "--epochs", "2"] + common, "train --epochs 2")
-        epochs = epoch_lines(out)
-        times = [(f, float(x)) for f, x in re.findall(r"function (\w+) took ([\d.e-]+) seconds", out)]
-        writer_line = next((ln for ln in out.splitlines() if ln.startswith("Scalar log:")), "")
-        say(f"trainer: CLI train --epochs 2 {s_train:.1f} s (process included); {writer_line}")
-        for e, vals in sorted(epochs.items()):
-            say(f"trainer: epoch {e}: " + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()))
-        if sorted(epochs) != [1, 2]:
-            raise AssertionError(f"train ran epochs {sorted(epochs)}, expected [1, 2]")
-        if not all(np.isfinite(v) for vals in epochs.values() for v in vals.values()):
-            raise AssertionError("a loss or score of the CLI's training is not finite")
-        for f, m, keys in ((ckpt.STATE_FILE, ckpt.META_FILE, META_KEYS),
-                           (ckpt.LATEST_STATE_FILE, ckpt.LATEST_META_FILE, LATEST_META_KEYS)):
-            meta = ckpt.read_meta(run, f, m)
-            if meta is None or set(meta) != set(keys):
-                raise AssertionError(f"{f} / {m}: meta {meta}, expected the keys {keys}")
-        if os.path.exists(os.path.join(run, JSONL_FILE)):
-            scalars = {(r["tag"], r["step"]) for r in read_jsonl(run) if r["kind"] == "scalar"}
-            missing = [(t, e) for t in REFERENCE_TAGS for e in (1, 2) if (t, e) not in scalars]
-        else:  # tensorboardX's event file: the tags are in its bytes
-            blob = b"".join(open(os.path.join(run, f), "rb").read() for f in os.listdir(run)
-                            if f.startswith("events.out.tfevents"))
-            missing = [t for t in REFERENCE_TAGS if t.encode() not in blob]
-        if missing:
-            raise AssertionError(f"scalar log lacks {missing[:5]}")
-        step2 = torch.load(os.path.join(run, ckpt.LATEST_STATE_FILE), weights_only=True)["step"]
-        say(f"trainer: states.pt, states_latest.pt and both metas written with the JAX package's "
-            f"keys; the 14 reference tags logged for epochs 1-2; step count {step2}")
-
-        out, s_resume = run_cli(["train", "--epochs", "3"] + common, "train --epochs 3")
-        epochs = epoch_lines(out)
-        step3 = torch.load(os.path.join(run, ckpt.LATEST_STATE_FILE), weights_only=True)["step"]
-        resumed = "Loaded latest states" in out
-        say(f"trainer: CLI train --epochs 3 {s_resume:.1f} s: resumed from the latest states: "
-            f"{resumed}; ran epochs {sorted(epochs)}; step count {step2} -> {step3}")
-        times += [(f, float(x)) for f, x in re.findall(r"function (\w+) took ([\d.e-]+) seconds", out)]
-        if not resumed or sorted(epochs) != [3] or step3 != step2 + step2 // 2:
-            raise AssertionError("the resumed run did not continue from the latest checkpoint")
-
-        out, s_test = run_cli(["test"] + common, "test")
-        test = {k: float(v) for k, v in re.findall(r"(\w+_test): (\S+)", out)}
-        say(f"trainer: CLI test {s_test:.1f} s: " + ", ".join(f"{k} {v:.4f}" for k, v in test.items()))
-        if set(test) != set(TEST_METRICS) or not all(np.isfinite(v) for v in test.values()):
-            raise AssertionError(f"test printed {test}")
-        for f in ("_train_each_epoch", "_validate_each_epoch"):
-            ts = [x for g, x in times if g == f]
-            say(f"trainer: {f} seconds (CLI runs, epochs 1-3, the first pays the set-up): "
-                + ", ".join(f"{x:.3f}" for x in ts) + f" on {card}")
+        cli_flow(common, run, "float32", card)
+        # the JAX package's defaults: no --compute-dtype (bf16), GP_DTYPE "compute"
+        run_b = os.path.join(root, "run_bf16")
+        default = ["--save-data-path", npz, "--log-dir", run_b, "--device", "cuda",
+                   "--slot-graphs", str(TRAINER_SLOT_GRAPHS), "--grid-local-nodes", str(local_nodes),
+                   "--ckpt-latest-interval", "1"]
+        cli_flow(default, run_b, "defaults (bfloat16)", card)
 
         # in process, on the same log dir: kernel launches, syncs, times, memory
         cfg = Configuration(SAVE_DATA_PATH=npz, COMPUTE_DTYPE="float32", EPOCHS=3,
@@ -1080,6 +1374,87 @@ def trainer_phase(dev, card):
     return launches
 
 
+def serve(cfg, samples, seeds, dev, card):
+    """The serving main path at cfg's dtype: InferenceServer at the config of record,
+    weights from torch.manual_seed(7), REQUESTS requests from CLIENTS threads; outputs
+    checked, served alone == served in a batch, the hourglass launches counted from 0.
+    Returns the server (stopped), its client threads and the measurements."""
+    from building_gan_torch.models.grid_models import GridVoxelGNNGenerator
+    from building_gan_torch.ops import hourglass as hg
+    from building_gan_torch.serving import InferenceServer
+
+    torch.manual_seed(7)
+    weights = GridVoxelGNNGenerator(cfg).state_dict()
+    server = InferenceServer(cfg, weights, max_batch=MAX_BATCH, max_delay_ms=5.0, device=dev)
+    tag = cfg.COMPUTE_DTYPE
+    hg.launches.reset()
+    server.start()
+    try:
+        server.infer(*samples[0], seed=seeds[0], timeout_s=REQUEST_TIMEOUT_S)  # warm-up
+        server.batch_sizes.clear()
+        results, latency, errors = {}, [], []
+        lock = threading.Lock()
+
+        def client(idx):
+            try:
+                for i in idx:
+                    t = time.perf_counter()
+                    r = server.infer(*samples[i], seed=seeds[i], timeout_s=REQUEST_TIMEOUT_S)
+                    with lock:
+                        latency.append(time.perf_counter() - t)
+                        results[i] = r
+            except Exception as e:  # noqa: BLE001 - re-raised by the main thread
+                with lock:
+                    errors.append(e)
+
+        threads = [
+            threading.Thread(target=client, args=(range(c, REQUESTS, CLIENTS),))
+            for c in range(CLIENTS)
+        ]
+        t_all = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=REQUEST_TIMEOUT_S * 2)
+        wall = time.perf_counter() - t_all
+        if any(th.is_alive() for th in threads):
+            raise TimeoutError("a client thread did not finish")
+        if errors:
+            raise errors[0]
+        if len(results) != REQUESTS:
+            raise AssertionError(f"{len(results)} of {REQUESTS} requests answered")
+        batch_sizes = list(server.batch_sizes)
+        for i, r in results.items():
+            n = samples[i][1].x.shape[0]
+            if r["logits"].shape != (n, 7) or r["types"].shape != (n,):
+                raise AssertionError(f"request {i}: bad output shape {r['logits'].shape}")
+            if not np.isfinite(r["logits"]).all():
+                raise AssertionError(f"request {i}: non-finite logits")
+            if not ((r["types"] >= 0) & (r["types"] < 7)).all():
+                raise AssertionError(f"request {i}: types outside [0, 7)")
+        alone_diff = 0.0
+        for i in (0, 1, REQUESTS - 1):
+            alone = server.infer(*samples[i], seed=seeds[i], timeout_s=REQUEST_TIMEOUT_S)
+            if not np.array_equal(alone["types"], results[i]["types"]):
+                raise AssertionError(f"request {i}: types served alone differ from batched")
+            alone_diff = max(alone_diff, float(np.abs(alone["logits"] - results[i]["logits"]).max()))
+        launches = hg.launches.value
+    finally:
+        server.stop()
+    if launches < 1:
+        raise AssertionError(f"the served path ({tag}) never launched the hourglass kernel")
+    lat = np.sort(np.array(latency)) * 1e3
+    out = {"server": server, "threads": threads, "launches": launches,
+           "p50": float(np.percentile(lat, 50)), "p99": float(np.percentile(lat, 99)),
+           "bps": REQUESTS / wall, "results": results}
+    say(f"serve ({tag}): {REQUESTS} requests, {CLIENTS} clients, batches {batch_sizes}")
+    say(f"serve ({tag}): latency p50 {out['p50']:.1f} ms p99 {out['p99']:.1f} ms, "
+        f"{out['bps']:.1f} buildings/s on {card}")
+    say(f"serve ({tag}): alone == batched types; logits max diff {alone_diff:.1e}; "
+        f"kernel launches {launches} (one per batch)")
+    return out
+
+
 def serving_inputs(dev):
     """The serve smoke's inputs: (cfg, ref_model, packed, seeds, samples, batch, zgen, z, x_hg).
 
@@ -1155,7 +1530,7 @@ def hourglass_layout(args, card):
     for _ in range(2):
         rc = lib.hg_forward(x.data_ptr(), mask.data_ptr(), None, 1, Ws.data_ptr(), atts.data_ptr(),
                             vecs.data_ptr(), cc, L, B, F, Y, X, cmax, 0.2, 1e-5,
-                            out.data_ptr(), C, trace.data_ptr(), stream)
+                            out.data_ptr(), None, 0, C, trace.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"traced hourglass launch failed: {lib.hg_error_string(rc).decode()}")
     torch.cuda.synchronize()
@@ -1212,16 +1587,15 @@ def main() -> int:
         return 1
     from building_gan_torch.data import pack_grid
     from building_gan_torch.models import fast_infer
-    from building_gan_torch.models.grid_models import GridVoxelGNNGenerator
     from building_gan_torch.ops import _build
     from building_gan_torch.ops import gat_train as gt
     from building_gan_torch.ops import hourglass as hg
-    from building_gan_torch.serving import InferenceServer
     from building_gan_torch.train.step import make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     # 1. the card
     card = card_line()
@@ -1281,72 +1655,8 @@ def main() -> int:
 
     # 4. the main path: the server
     t_phase = time.perf_counter()
-    torch.manual_seed(7)
-    weights = GridVoxelGNNGenerator(cfg).state_dict()
-    server = InferenceServer(cfg, weights, max_batch=MAX_BATCH, max_delay_ms=5.0, device=dev)
-    hg.launches.reset()
-    server.start()
-    try:
-        server.infer(*samples[0], seed=seeds[0], timeout_s=REQUEST_TIMEOUT_S)  # warm-up
-        server.batch_sizes.clear()
-        results, latency, errors = {}, [], []
-        lock = threading.Lock()
-
-        def client(idx):
-            try:
-                for i in idx:
-                    t = time.perf_counter()
-                    r = server.infer(*samples[i], seed=seeds[i], timeout_s=REQUEST_TIMEOUT_S)
-                    with lock:
-                        latency.append(time.perf_counter() - t)
-                        results[i] = r
-            except Exception as e:  # noqa: BLE001 - re-raised by the main thread
-                with lock:
-                    errors.append(e)
-
-        threads = [
-            threading.Thread(target=client, args=(range(c, REQUESTS, CLIENTS),))
-            for c in range(CLIENTS)
-        ]
-        t_all = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=REQUEST_TIMEOUT_S * 2)
-        wall = time.perf_counter() - t_all
-        if any(th.is_alive() for th in threads):
-            raise TimeoutError("a client thread did not finish")
-        if errors:
-            raise errors[0]
-        if len(results) != REQUESTS:
-            raise AssertionError(f"{len(results)} of {REQUESTS} requests answered")
-        batch_sizes = list(server.batch_sizes)
-        for i, r in results.items():
-            n = samples[i][1].x.shape[0]
-            if r["logits"].shape != (n, 7) or r["types"].shape != (n,):
-                raise AssertionError(f"request {i}: bad output shape {r['logits'].shape}")
-            if not np.isfinite(r["logits"]).all():
-                raise AssertionError(f"request {i}: non-finite logits")
-            if not ((r["types"] >= 0) & (r["types"] < 7)).all():
-                raise AssertionError(f"request {i}: types outside [0, 7)")
-        alone_diff = 0.0
-        for i in (0, 1, REQUESTS - 1):
-            alone = server.infer(*samples[i], seed=seeds[i], timeout_s=REQUEST_TIMEOUT_S)
-            if not np.array_equal(alone["types"], results[i]["types"]):
-                raise AssertionError(f"request {i}: types served alone differ from batched")
-            alone_diff = max(alone_diff, float(np.abs(alone["logits"] - results[i]["logits"]).max()))
-        main_launches = hg.launches.value
-    finally:
-        server.stop()
-    if main_launches < 1:
-        raise AssertionError("the served path never launched the hourglass kernel")
-    lat = np.sort(np.array(latency)) * 1e3
-    say(f"serve: {REQUESTS} requests, {CLIENTS} clients, batches {batch_sizes}")
-    say(f"serve: latency p50 {np.percentile(lat, 50):.1f} ms p99 {np.percentile(lat, 99):.1f} ms, "
-        f"{REQUESTS / wall:.1f} buildings/s on {card}")
-    say(f"serve: alone == batched types; logits max diff {alone_diff:.1e}; "
-        f"kernel launches {main_launches} (one per batch)")
-
+    served = serve(cfg, samples, seeds, dev, card)
+    server, threads, main_launches = served["server"], served["threads"], served["launches"]
     say(f"phase: serve {time.perf_counter() - t_phase:.1f} s")
 
     # 5. timing at the server's shapes (K=1), plain and kernel in turns
@@ -1392,6 +1702,39 @@ def main() -> int:
 
     say(f"phase: hourglass timing and batch breakdown {time.perf_counter() - t_phase:.1f} s")
 
+    # 5c. the serving main path at the JAX package's default COMPUTE_DTYPE (bf16): the
+    # kernel's bf16 storage, served beside the f32 figures; the kernel timed at bf16
+    t_phase = time.perf_counter()
+    cfg_b = cfg.replace(COMPUTE_DTYPE="bfloat16")
+    served_b = serve(cfg_b, samples, seeds, dev, card)
+    threads = threads + served_b["threads"]
+    servers = [server, served_b["server"]]
+    agree = np.mean([float((served_b["results"][i]["types"] == served["results"][i]["types"]).mean())
+                     for i in served["results"]])
+    ldiff = max(float(np.abs(served_b["results"][i]["logits"] - served["results"][i]["logits"]).max())
+                for i in served["results"])
+    say(f"serve: bf16 against f32: p50 {served_b['p50']:.1f} / {served['p50']:.1f} ms, p99 "
+        f"{served_b['p99']:.1f} / {served['p99']:.1f} ms, {served_b['bps']:.1f} / {served['bps']:.1f} "
+        f"buildings/s; the same types on {100 * agree:.2f}% of voxels, logits max diff {ldiff:.3f}")
+    args_b = (x_hg.to(BF16),) + args[1:]
+    with torch.no_grad():
+        for _ in range(3):
+            hg.hourglass_cuda(*args_b)
+            hg.hourglass_plain(*args_b)
+        torch.cuda.synchronize()
+        p1 = timed_ms(lambda: hg.hourglass_plain(*args_b), 10)
+        k1 = timed_ms(lambda: hg.hourglass_cuda(*args_b), 20)
+        k2 = timed_ms(lambda: hg.hourglass_cuda(*args), 20)
+        k3 = timed_ms(lambda: hg.hourglass_cuda(*args_b), 20)
+        p2 = timed_ms(lambda: hg.hourglass_plain(*args_b), 10)
+    ms_b, plain_ms_b = (k1 + k3) / 2, (p1 + p2) / 2
+    bound_b = bound_of(MAX_BATCH, R, chans, cmax, 1, act_bytes=2)
+    say(f"time: bf16 hourglass kernel {k1:.3f}/{k3:.3f} ms (f32 between: {k2:.3f}), plain bf16 "
+        f"{p1:.3f}/{p2:.3f} ms, bound {bound_b[0]:.4f} ms ({bound_b[1]}), {100 * bound_b[0] / ms_b:.2f}% "
+        f"of bound; cluster {hg.cluster_size(MAX_BATCH, R, cmax, 1, chans)} CTAs a slot (shared "
+        f"memory holds f32 rows at either storage) on {card}")
+    say(f"phase: serve at bf16 {time.perf_counter() - t_phase:.1f} s")
+
     # 6. the training kernels against their plain version at full width
     t_phase = time.perf_counter()
     cfg_t, batch_t = train_batch()
@@ -1404,6 +1747,13 @@ def main() -> int:
     t_phase = time.perf_counter()
     fwd_err, bwd_err = check_train_kernels(batch_t, dev)
     say(f"phase: train kernel checks {time.perf_counter() - t_phase:.1f} s")
+
+    # 6b. all three kernels with bf16 storage, against their plain bf16 twins and f64
+    t_phase = time.perf_counter()
+    bf16_errs = check_bf16_kernels(
+        batch_t, (x_hg, ((1, mask_k1, None), (4, mask_k4, gid_k4.contiguous())), packed["Ws"],
+                  packed["atts"], packed["vecs"], chans), dev)
+    say(f"phase: bf16 kernel checks {time.perf_counter() - t_phase:.1f} s")
 
     # 7. the training main path
     t_phase = time.perf_counter()
@@ -1422,11 +1772,28 @@ def main() -> int:
     repair_check(state, cfg_t, batch_t, dev, card)
     say(f"phase: repair check {time.perf_counter() - t_phase:.1f} s")
 
+    # 7c. the training main path at the JAX package's defaults: COMPUTE_DTYPE bf16 with
+    # GP_DTYPE "compute" (3 steps), then one step at GP_DTYPE "float32"; then the f32 and
+    # bf16 steps in turns in this process (f32, bf16, bf16, f32, twice)
+    t_phase = time.perf_counter()
+    cfg_tb = cfg_t.replace(COMPUTE_DTYPE="bfloat16")
+    state_b, _, (fwd_launches_b, bwd_launches_b) = train_phase(cfg_tb, batch_t, dev)
+    train_phase(cfg_tb.replace(GP_DTYPE="float32"), batch_t, dev, steps=1)
+    dtype_turns({"float32": (cfg_t, state), "bfloat16": (cfg_tb, state_b)}, batch_t, dev, card)
+    say(f"phase: bf16 train steps {time.perf_counter() - t_phase:.1f} s; launches fwd "
+        f"{fwd_launches_b} bwd {bwd_launches_b} in the 3 bf16 steps")
+
     # 8. the stacks timed at the step's shapes
     t_phase = time.perf_counter()
     stacks, (fwd_err2, bwd_err2) = time_train_stacks(state, batch_t, dev, card)
     fwd_err, bwd_err = max(fwd_err, fwd_err2), max(bwd_err, bwd_err2)
     say(f"phase: train stack timing {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    stacks_b, (fwd_err_b, bwd_err_b) = time_train_stacks(state_b, batch_t, dev, card, BF16)
+    bf16_errs["gat_train_fwd"] = max(bf16_errs["gat_train_fwd"], fwd_err_b)
+    bf16_errs["gat_train_bwd"] = max(bf16_errs["gat_train_bwd"], bwd_err_b)
+    eval_turns({"float32": (cfg_t, state), "bfloat16": (cfg_tb, state_b)}, batch_t, dev, card)
+    say(f"phase: bf16 train stack timing and eval {time.perf_counter() - t_phase:.1f} s")
 
     # 8b. where a train step's time goes: host clock around each part, then a trace
     t_phase = time.perf_counter()
@@ -1448,40 +1815,60 @@ def main() -> int:
             f"gat_train kernels {ours_ms:.1f} ms ({100 * ours_ms / busy_ms:.1f}% of busy)")
         for name, v in top[:15]:
             say(f"  device {v:8.2f} ms  {name[:110]}")
+    prof_b, busy_b, ours_b, top_b = profile_step(make_train_step(cfg_tb, state_b), batch_t, dev)
+    if busy_b is None:
+        say("train step trace (bf16): the profiler shows no device time; not measured")
+    else:
+        say(f"train step trace (bf16): wall {prof_b:.1f} ms under the profiler, device busy "
+            f"{busy_b:.1f} ms ({100 * busy_b / prof_b:.1f}%), idle {100 * (1 - busy_b / prof_b):.1f}%; "
+            f"gat_train kernels {ours_b:.1f} ms ({100 * ours_b / busy_b:.1f}% of busy)")
+        for name, v in top_b[:10]:
+            say(f"  device {v:8.2f} ms  {name[:110]}")
 
     repair_trace(state, cfg_t, batch_t, dev, kernel_trace)
     say(f"phase: train breakdown and traces {time.perf_counter() - t_phase:.1f} s")
-    del state
+    del state, state_b
     torch.cuda.empty_cache()
 
     # 9. the trainer slice: CLI subprocesses on the card, then a Trainer in process
     trainer_phase(dev, card)
 
     # 10. kernels line: the training kernels' times are one generator stack
-    # (14 layer launches) at the step's shapes
-    gen_t = stacks["generator"]
-    kernels = [{
-        "name": "hourglass_fwd", "route": "cuda",
-        "source": "building_gan_torch/csrc/hourglass.cu",
-        "replaces": "building_gan_tpu/ops/pallas/hourglass.py:92",
-        "launches": main_launches, "max_abs_err": max_abs_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
-    }]
-    for kname, line, launches, err, (k_ms, p_ms, b_ms, b_by) in (
-        ("gat_train_fwd", 175, fwd_launches, fwd_err, gen_t["fwd"]),
-        ("gat_train_bwd", 208, bwd_launches, bwd_err, gen_t["bwd"]),
+    # (14 layer launches) at the step's shapes; each kernel at f32 and at bf16 storage,
+    # launches from that dtype's main path (the server's, 3 train steps)
+    kernels = []
+    for dt, launches_hg, errs, hg_t, stk, (fl, bl) in (
+        ("float32", main_launches, {"hourglass_fwd": max_abs_err, "gat_train_fwd": fwd_err,
+                                    "gat_train_bwd": bwd_err},
+         (ms, plain_ms, bound_ms, bound_by), stacks["generator"], (fwd_launches, bwd_launches)),
+        ("bfloat16", served_b["launches"], bf16_errs, (ms_b, plain_ms_b, bound_b[0], bound_b[1]),
+         stacks_b["generator"], (fwd_launches_b, bwd_launches_b)),
     ):
+        sfx = "" if dt == "float32" else "_bf16"
         kernels.append({
-            "name": kname, "route": "cuda", "source": "building_gan_torch/csrc/gat_train.cu",
-            "replaces": f"building_gan_tpu/ops/pallas/gat_train.py:{line}",
-            "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "name": "hourglass_fwd" + sfx, "route": "cuda", "dtype": dt,
+            "source": "building_gan_torch/csrc/hourglass.cu",
+            "replaces": "building_gan_tpu/ops/pallas/hourglass.py:92",
+            "launches": launches_hg, "max_abs_err": errs["hourglass_fwd"],
+            "ms": hg_t[0], "plain_ms": hg_t[1], "bound_ms": hg_t[2], "bound_by": hg_t[3],
+            "library_ms": None,
         })
+        for kname, line, launches, (k_ms, p_ms, b_ms, b_by) in (
+            ("gat_train_fwd", 175, fl, stk["fwd"]),
+            ("gat_train_bwd", 208, bl, stk["bwd"]),
+        ):
+            kernels.append({
+                "name": kname + sfx, "route": "cuda", "dtype": dt,
+                "source": "building_gan_torch/csrc/gat_train.cu",
+                "replaces": f"building_gan_tpu/ops/pallas/gat_train.py:{line}",
+                "launches": launches, "max_abs_err": errs[kname], "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            })
+    say(f"total: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
 
     # 11. result line, last
-    if server._thread.is_alive() or any(th.is_alive() for th in threads):
+    if any(srv._thread.is_alive() for srv in servers) or any(th.is_alive() for th in threads):
         raise AssertionError("a server or client thread is still running")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

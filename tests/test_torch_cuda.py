@@ -70,6 +70,64 @@ def test_kernel_matches_plain_at_full_width(K, cuda_device):
     assert err_kernel <= ROUNDING_FACTOR * err_plain + ROUNDING_ATOL, (err_kernel, err_plain)
 
 
+def _bf16_ulp(t) -> float:
+    """One bf16 ulp (8 significant bits) at the largest |value| of t."""
+    m = t.abs().max().item()
+    return 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
+
+
+def _stored64(x, mask, Ws, atts, vecs, chans, gid, K):
+    """The plain stack in f64 on bf16 x, a layer at a time, each layer's output
+    rounded to bf16 as the bf16 kernel stores it."""
+    y = x.double()
+    for l in range(len(chans)):
+        y = hg.hourglass_plain(y, mask, Ws[l:l + 1].double(), atts[l:l + 1].double(),
+                               vecs[l:l + 1].double(), chans[l:l + 1], gid, K).to(torch.bfloat16).double()
+    return y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+def test_kernel_bf16_matches_plain_at_full_width(K, cuda_device):
+    """bf16 storage (x and out bf16, each layer's output rounded to bf16, f32 math):
+    held against the plain version run in f64 on the same bf16 x and rounded to bf16
+    where the kernel stores, so the plain bf16 twin's distance from it is f32
+    rounding alone.  Max abs within 4x the twin's own plus 1e-4 and one bf16 ulp of
+    the largest value (f32 rounding can move a stored value across a rounding
+    boundary); norm-relative within 4x the twin's plus 1e-4."""
+    gen = torch.Generator().manual_seed(10 + K)
+    B, F, Y, X = 4, 11, 12, 12
+    torch.manual_seed(10 + K)
+    with torch.no_grad():
+        Ws, atts, vecs = (a.to(cuda_device) for a in hg.pack_gat_weights(GridHourglass(128, 7)))
+    chans = hg.hourglass_channel_pairs(128, 7)
+    mask = (torch.rand(B, F, Y, X, generator=gen) < 0.6).float()
+    ix = torch.arange(X).expand(B, F, Y, X)
+    iy = torch.arange(Y)[:, None].expand(B, F, Y, X)
+    gid = ((ix >= X // 2).long() + 2 * (iy >= Y // 2).long()) if K > 1 else None
+    x = torch.randn(B, F, Y, X, 128, generator=gen).to(cuda_device, torch.bfloat16)
+    args = (x, mask.to(cuda_device), Ws, atts, vecs, chans,
+            None if gid is None else gid.to(cuda_device), K)
+    twin = hg.hourglass_plain(*args)
+    unrounded64 = hg.hourglass_plain(
+        *(a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args)
+    )
+    want64 = _stored64(*args)
+    before = hg.launches.value
+    got = hg.hourglass_fwd(*args)
+    torch.cuda.synchronize()
+    assert hg.launches.value == before + 1
+    assert got.dtype == twin.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert (twin.double() - unrounded64).abs().max().item() > 0  # the twin rounds
+    err_kernel = (got.double() - want64).abs().max().item()
+    err_twin = (twin.double() - want64).abs().max().item()
+    limit = ROUNDING_FACTOR * err_twin + ROUNDING_ATOL + _bf16_ulp(want64)
+    assert err_kernel <= limit, (err_kernel, err_twin, limit)
+    rel_kernel = ((got.double() - want64).norm() / want64.norm()).item()
+    rel_twin = ((twin.double() - want64).norm() / want64.norm()).item()
+    assert rel_kernel <= ROUNDING_FACTOR * rel_twin + ROUNDING_ATOL, (rel_kernel, rel_twin)
+
+
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     with torch.no_grad():
@@ -79,6 +137,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     mask = torch.ones(2, 3, 4, 5, device=cuda_device)
     with pytest.raises(TypeError):
         hg.hourglass_fwd(x.double(), mask, Ws, atts, vecs, chans)
+    with pytest.raises(TypeError):
+        hg.hourglass_fwd(x.half(), mask, Ws, atts, vecs, chans)
     with pytest.raises(ValueError):
         hg.hourglass_fwd(x, mask, Ws, atts, vecs, chans, num_graphs=2)  # no gid plane
     with pytest.raises(ValueError):
@@ -149,3 +209,29 @@ def test_served_path_launches_the_kernel(cuda_device):
     np.testing.assert_array_equal(again["types"], first[2]["types"])
     for r, (_, v) in zip(first, samples):
         assert r["logits"].shape == (v.x.shape[0], 7) and np.isfinite(r["logits"]).all()
+
+
+@pytest.mark.cuda
+def test_served_path_at_bf16_launches_the_kernel(cuda_device):
+    """The server at the JAX package's default COMPUTE_DTYPE (bf16): the kernel's bf16
+    storage on the served path, one launch a batch, finite f32 logits, alone == batched."""
+    cfg = Configuration(GRID_SHAPE=(10, 8, 8), GENERATOR_HIDDEN_DIM=32, GENERATOR_ENCODER_REPEAT=3,
+                        LOCAL_ENCODER_HIDDEN_DIM=32, Z_DIM=16)
+    assert cfg.COMPUTE_DTYPE == "bfloat16"
+    samples = [process_building(*generate_building(1000 + i), cfg, str(i)) for i in range(4)]
+    torch.manual_seed(0)
+    srv = InferenceServer(cfg, GridVoxelGNNGenerator(cfg).state_dict(), max_batch=4,
+                          max_delay_ms=20.0, device=cuda_device).start()
+    try:
+        before = hg.launches.value
+        first = [srv.infer(*s, seed=i, timeout_s=120.0) for i, s in enumerate(samples)]
+        again = srv.infer(*samples[2], seed=2, timeout_s=120.0)
+    finally:
+        srv.stop()
+    assert hg.launches.value >= before + 5
+    assert srv._weights[0].compute_dtype == torch.bfloat16
+    np.testing.assert_array_equal(again["types"], first[2]["types"])
+    np.testing.assert_array_equal(again["logits"], first[2]["logits"])
+    for r, (_, v) in zip(first, samples):
+        assert r["logits"].dtype == np.float32 and r["logits"].shape == (v.x.shape[0], 7)
+        assert np.isfinite(r["logits"]).all()

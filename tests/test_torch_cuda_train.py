@@ -15,6 +15,7 @@ version's, plus 1e-4, which a few cells where rounding flips a ReLU barely
 move and a missing term fails.  Whole stacks and each layer alone.
 """
 
+import math
 import os
 
 import pytest
@@ -68,12 +69,38 @@ def _grads(fn, leaves, gy):
     return [y.detach()] + list(torch.autograd.grad(y, leaves, gy))
 
 
+def _bf16_ulp(t) -> float:
+    """One bf16 ulp (8 significant bits) at the largest |value| of t."""
+    m = t.abs().max().item()
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+class _Bf16Store(torch.autograd.Function):
+    """Identity that rounds to bf16 and back, forward and backward: in an f64
+    reference, where a bf16 kernel stores (a layer's output; its gx)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(torch.bfloat16).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
+def _stored(t):
+    return t if t.dtype == torch.bfloat16 else _Bf16Store.apply(t)
+
+
 def _assert_f64_rules(got, want, want64):
+    """Max abs and norm-relative rules; an output the twin stores in bf16 also has one
+    bf16 ulp of its largest value (f32 rounding can move it across a rounding boundary)."""
     for name, a, b, c in zip(("y", "gx", "gW", "gatt", "gvec"), got, want, want64):
         assert torch.isfinite(a).all(), name
         err_k = (a.double() - c).abs().max().item()
         err_p = (b.double() - c).abs().max().item()
-        assert err_k <= ROUNDING_FACTOR * err_p + ROUNDING_ATOL, (name, err_k, err_p)
+        ulp = _bf16_ulp(c) if b.dtype == torch.bfloat16 else 0.0
+        assert err_k <= ROUNDING_FACTOR * err_p + ROUNDING_ATOL + ulp, (name, err_k, err_p)
         rel_k = ((a.double() - c).norm() / c.norm()).item()
         rel_p = ((b.double() - c).norm() / c.norm()).item()
         assert rel_k <= ROUNDING_FACTOR * rel_p + REL_ATOL, (name, rel_k, rel_p)
@@ -120,6 +147,53 @@ def test_each_layer_matches_plain_forward_and_backward(hidden, repeat, K, cuda_d
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hidden,repeat,K", [(128, 7, 6), (64, 3, 1), (32, 5, 3)],
+                         ids=["generator_k6", "critic_k1", "odd_co1_k3"])
+def test_bf16_kernels_match_plain_forward_and_backward(hidden, repeat, K, cuda_device):
+    """bf16 storage: x, y, gy and gx bf16 (rows of 2 co bytes: odd widths give rows on
+    no 4-byte boundary), weights and their grads f32.  Each layer alone on the
+    kernels' own activations (its backward on gy), against the plain bf16 twins (the
+    same roundings) by the f64 rules, the f64 reference taking the same bf16 inputs
+    and rounding to bf16 where the kernels store (each layer's y, and gx); the stack's
+    output and gradients equal bit for bit the chain of layer calls, each backward fed
+    the kernel's gx of the layer above.  A whole bf16 stack is not held by the rules:
+    its rounding flips compound through the narrow GraphNorm layers."""
+    x, planes, Ws, atts, vecs, keys, chans = _stack(hidden, repeat, 4, K, hidden + K + 2, cuda_device)
+    x = x.to(torch.bfloat16)
+    gy = torch.randn(x.shape, device=cuda_device).to(torch.bfloat16)
+    levels = drop.drop_levels(0.2)
+
+    def fused(*a):
+        return gt.hourglass_train(a[0], planes, *a[1:], keys, GRID, K, 0.2, False, chans=chans)
+
+    f0, b0 = gt.fwd_launches.value, gt.bwd_launches.value
+    got = _grads(fused, (x, Ws, atts, vecs), gy)
+    torch.cuda.synchronize()
+    assert (gt.fwd_launches.value - f0, gt.bwd_launches.value - b0) == (len(chans), len(chans))
+    assert [t.dtype for t in got] == [torch.bfloat16] * 2 + [torch.float32] * 3
+    xs = [x]
+    with torch.no_grad():
+        for l, (ci, co) in enumerate(chans):
+            xs.append(gt.fused_layer(xs[-1], planes, Ws[l], atts[l], vecs[l], keys[l], GRID, ci, co,
+                                     K, levels))
+    assert torch.equal(got[0], xs[-1])
+    g = gy
+    for l in reversed(range(len(chans))):
+        ci, co = chans[l]
+        leaves = (xs[l], Ws[l], atts[l], vecs[l])
+        kernel = lambda *a: gt.fused_layer(a[0], planes, *a[1:], keys[l], GRID, ci, co, K, levels)  # noqa: E731
+        one = lambda *a: _stored(gt.layer_plain(_stored(a[0]), planes, *a[1:], keys[l], GRID, K,  # noqa: E731
+                                                levels))
+        want = _grads(one, leaves, gy)
+        want64 = _grads(one, [a.double() for a in leaves], gy.double())
+        _assert_f64_rules(_grads(kernel, leaves, gy), want, want64)
+        chain = _grads(kernel, leaves, g)
+        assert all(torch.equal(a, b[l]) for a, b in zip(chain[2:], got[2:])), l
+        g = chain[1]
+    assert torch.equal(got[1], g)
+
+
+@pytest.mark.cuda
 def test_param_grads_do_not_depend_on_slot_grouping(cuda_device):
     """gW of a batch == the sum over its slots run one at a time (f32 rounding apart)."""
     x, planes, Ws, atts, vecs, keys, chans = _stack(32, 2, 5, 3, 7, cuda_device)
@@ -156,6 +230,7 @@ def test_wrapper_rejects_what_it_does_not_take(cuda_device):
     gt.fused_layer(*ok)
     bad = [
         ((x.double(),) + ok[1:], TypeError),  # dtype
+        ((x.half(),) + ok[1:], TypeError),  # float16 storage: not ported
         ((x[:, :-1],) + ok[1:], ValueError),  # rows != grid
         ((x.cpu(),) + ok[1:], ValueError),  # device
         (ok[:2] + (Ws[0].cpu(),) + ok[3:], ValueError),
@@ -197,6 +272,39 @@ def test_train_step_launches_both_kernels(cuda_device):
     assert gt.bytes_launches.value - d0 == cfg.N_CRITIC * Ld
     for k, v in metrics.items():
         assert torch.isfinite(v).all(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gp_dtype", ["compute", "float32"])
+def test_bf16_train_step_launches_both_kernels(gp_dtype, cuda_device):
+    """The train step at the JAX package's default COMPUTE_DTYPE (bf16), the GP pass at
+    GP_DTYPE: the same kernel and dropout-byte launches as f32, finite losses, f32
+    parameters."""
+    cfg = Configuration(
+        GP_DTYPE=gp_dtype, GRID_SHAPE=(10, 8, 8), GENERATOR_HIDDEN_DIM=32,
+        GENERATOR_ENCODER_REPEAT=2, LOCAL_ENCODER_HIDDEN_DIM=32, Z_DIM=16,
+        GENERATOR_MLP_ENCODER_REPEAT=1, LOCAL_GRAPH_ENCODER_REPEAT=1,
+        DISCRIMINATOR_ENCODER_REPEAT=2, DISCRIMINATOR_HIDDEN_DIM=32, N_CRITIC=2,
+        GRID_LOCAL_NODES=128, GRID_SLOT_GRAPHS=3, GRID_PACK_MODE="cell",
+    )
+    assert cfg.COMPUTE_DTYPE == "bfloat16"
+    samples = [process_building(*generate_building(1000 + i), cfg, str(i)) for i in range(8)]
+    samples = [s for s in samples if int(s[1].location[:, 0].max()) < 10]
+    batch = pack_grid_multi(samples, cfg, batch_slots=6).to(cuda_device)
+    torch.manual_seed(0)
+    state = create_train_state(cfg, GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg))
+    step = make_train_step(cfg, state)
+    f0, b0, d0 = gt.fwd_launches.value, gt.bwd_launches.value, gt.bytes_launches.value
+    metrics = step(batch, torch.Generator(device=cuda_device).manual_seed(0))
+    torch.cuda.synchronize()
+    Lg = Ld = 4
+    assert gt.fwd_launches.value - f0 == cfg.N_CRITIC * (Lg + 2 * Ld) + Lg + Ld
+    assert gt.bwd_launches.value - b0 == cfg.N_CRITIC * 2 * Ld + Ld + Lg
+    assert gt.bytes_launches.value - d0 == cfg.N_CRITIC * Ld
+    for k, v in metrics.items():
+        assert torch.isfinite(v).all(), k
+    for m in (state.generator, state.discriminator):
+        assert {p.dtype for p in m.parameters()} == {torch.float32}
 
 
 @pytest.mark.cuda

@@ -40,7 +40,7 @@ from building_gan_torch.ops import dropout as drop
 from building_gan_torch.ops import gat_train as gt
 from building_gan_torch.ops.hourglass import hourglass_channel_pairs
 
-from test_torch_kernel_emulated import EMU_HEADER, emulated_source
+from test_torch_kernel_emulated import EMU_BF16_HEADER, EMU_HEADER, emulated_source
 from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 TOL = 1e-4
@@ -53,6 +53,7 @@ def emulated_lib(tmp_path_factory):
         pytest.skip("needs a host C++ compiler (g++) for the CPU emulation")
     d = tmp_path_factory.mktemp("cuda_emu_gt")
     (d / "cuda_runtime.h").write_text(EMU_HEADER)
+    (d / "cuda_bf16.h").write_text(EMU_BF16_HEADER)
     with open(f"{_build.CSRC}/gat_train.cu") as f:
         src, n = emulated_source(f.read())
     # launch sites: forward 3, backward 4, bytes 1 (each pass launches one
@@ -136,6 +137,53 @@ def test_emulated_layer_matches_plain(emulated_lib, B, F, Y, X, hidden, repeat, 
             assert torch.isfinite(a).all(), name
             _close(a, b, f"layer {l} {name}")
         x = want.detach().float()
+
+
+def _close_bf16(got, want, name):
+    """A bf16 result: within one bf16 ulp of the f64 value (2^-8 of it: the
+    rounding of the store is half of that) plus TOL of the largest magnitude."""
+    assert got.dtype == torch.bfloat16, name
+    scale = want.abs().max().item() + 1e-6
+    err = (got.double() - want).abs()
+    bound = want.abs() * 2.0**-8 + TOL * scale
+    assert (err <= bound).all(), f"{name}: max excess {(err - bound).max().item():.3e} (scale {scale:.3e})"
+
+
+@pytest.mark.parametrize(
+    "B,F,Y,X,hidden,repeat,K,rate",
+    [(2, 3, 4, 5, 4, 2, 3, 0.2), (2, 3, 4, 5, 12, 2, 2, 0.2), (2, 2, 5, 6, 128, 1, 1, 0.2)],
+    ids=["k3_co1_odd_rows", "k2_co3_co6_unaligned_rows", "k1_co64_co128"],
+)
+def test_emulated_bf16_layer_matches_plain(emulated_lib, B, F, Y, X, hidden, repeat, K, rate):
+    """bf16 storage (x, y, gy, gx): every row is 2 co bytes, so odd widths give rows
+    no 4- or 8-byte boundary holds; the reference is layer_plain in f64 on the same
+    bf16 values, each bf16 output within one ulp of it, the f32 weight grads as above."""
+    rng = np.random.default_rng(hidden + 11 * K)
+    grid, Ws, atts, vecs, chans, planes, keys, levels, x = _case(rng, B, F, Y, X, hidden, repeat,
+                                                                 K, rate)
+    x = x.to(torch.bfloat16)
+    for l, (ci, co) in enumerate(chans):
+        key = keys[l] if levels else None
+        meta = (ci, co, K, levels, grid, 0.2, 1e-5)
+        xl = x.double().requires_grad_(True)
+        w, att, vec = (a[l].double().requires_grad_(True) for a in (Ws, atts, vecs))
+        want = gt.layer_plain(xl, planes, w, att, vec, key, grid, K, levels)
+        got, saved = gt.launch_forward(emulated_lib, None, x, planes, Ws[l], atts[l], vecs[l], key, meta)
+        assert torch.isfinite(got).all()
+        _close_bf16(got, want.detach(), f"layer {l} forward")
+        assert (got[..., co:] == 0).all()
+
+        gy = torch.from_numpy(rng.normal(size=(B, x.shape[1], hidden)).astype(np.float32))
+        gy = gy.to(torch.bfloat16)
+        want_g = torch.autograd.grad((want * gy.double()).sum(), (xl, w, att, vec))
+        got_g = gt.launch_backward(emulated_lib, None, gy, x, planes, Ws[l], atts[l], vecs[l],
+                                   key, saved, meta)
+        assert [a.dtype for a in got_g] == [torch.bfloat16] + [torch.float32] * 3
+        _close_bf16(got_g[0], want_g[0], f"layer {l} gx")
+        for name, a, b in zip(("gW", "gatt", "gvec"), got_g[1:], want_g[1:]):
+            assert torch.isfinite(a).all(), name
+            _close(a, b, f"layer {l} {name}")
+        x = got
 
 
 def test_emulated_backward_is_bit_reproducible(emulated_lib):

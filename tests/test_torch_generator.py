@@ -49,7 +49,7 @@ def _build(samples, small_cfg, multi):
     want, _, _ = gen.apply(
         {"params": params}, gb, jnp.array(z), deterministic=True, rngs={"gumbel": key}
     )
-    tcfg = port_cfg(cfg)
+    tcfg = port_cfg(cfg).replace(COMPUTE_DTYPE="float32")  # as the flax side's dtype
     model = GridVoxelGNNGenerator(tcfg)
     model.load_state_dict(generator_params_to_state_dict(params, tcfg))
     return tcfg, port_batch(gb), z, np.asarray(want), model, params

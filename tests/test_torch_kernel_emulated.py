@@ -216,6 +216,27 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(P..
 }
 """
 
+# cuda_bf16.h's storage type and its two conversions (round to nearest even).
+EMU_BF16_HEADER = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+struct __nv_bfloat16 { std::uint16_t bits; };
+inline float __bfloat162float(__nv_bfloat16 b) {
+  const std::uint32_t u = (std::uint32_t)b.bits << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  std::uint32_t u;
+  std::memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {(std::uint16_t)((u >> 16) | 0x40u)};  // NaN
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {(std::uint16_t)(u >> 16)};
+}
+"""
+
 # cooperative_groups' cluster API over the emulated cluster.
 EMU_CG_HEADER = r"""
 #pragma once
@@ -253,6 +274,7 @@ def emulated_lib(tmp_path_factory):
         pytest.skip("needs a host C++ compiler (g++) for the CPU emulation")
     d = tmp_path_factory.mktemp("cuda_emu")
     (d / "cuda_runtime.h").write_text(EMU_HEADER)
+    (d / "cuda_bf16.h").write_text(EMU_BF16_HEADER)
     (d / "cooperative_groups.h").write_text(EMU_CG_HEADER)
     with open(f"{_build.CSRC}/hourglass.cu") as f:
         raw = f.read()
@@ -277,12 +299,15 @@ def _run(lib, x, mask, Ws, atts, vecs, chans, gid, K, cluster):
     B, F, Y, X, cmax = x.shape
     L = len(chans)
     out = torch.full_like(x, float("nan"))  # every element must be written
+    bf16 = x.dtype == torch.bfloat16
+    vlast = torch.full(x.shape, float("nan")) if bf16 else None
     g = None if gid is None else gid.to(torch.int32).contiguous()
     chans_c = (ctypes.c_int * (2 * L))(*[c for pair in chans for c in pair])
     rc = lib.hg_forward(
         x.data_ptr(), mask.data_ptr(), None if g is None else g.data_ptr(), K,
         Ws.data_ptr(), atts.data_ptr(), vecs.data_ptr(), chans_c, L,
-        B, F, Y, X, cmax, 0.2, 1e-5, out.data_ptr(), cluster, None, None,
+        B, F, Y, X, cmax, 0.2, 1e-5, out.data_ptr(), None if vlast is None else vlast.data_ptr(),
+        int(bf16), cluster, None, None,
     )
     assert rc == 0
     return out
@@ -313,6 +338,16 @@ CASES = {
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_emulated_kernel_matches_plain(emulated_lib, case):
+    x, mask, Ws, atts, vecs, chans, gid, K, cluster = _emulated_case(case)
+    want = hg.hourglass_plain(x.double(), mask, Ws.double(), atts.double(), vecs.double(), chans,
+                              gid, K).float()
+    got = _run(emulated_lib, x, mask, Ws, atts, vecs, chans, gid, K, cluster)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _emulated_case(case):
+    """(x, mask, Ws, atts, vecs, chans, gid, K, cluster) of a CASES entry."""
     B, F, Y, X, hidden, repeat, K, cluster = CASES[case]
     rng = np.random.default_rng(hidden + K)
     torch.manual_seed(hidden + K)
@@ -328,11 +363,26 @@ def test_emulated_kernel_matches_plain(emulated_lib, case):
     mask = torch.from_numpy((rng.random((B, F, Y, X)) < 0.7).astype(np.float32))
     gid = torch.from_numpy(rng.integers(0, K, (B, F, Y, X))) if K > 1 else None
     x = torch.from_numpy(rng.normal(size=(B, F, Y, X, hidden)).astype(np.float32))
-    want = hg.hourglass_plain(x.double(), mask, Ws.double(), atts.double(), vecs.double(), chans,
-                              gid, K).float()
+    return x, mask, Ws, atts, vecs, chans, gid, K, cluster
+
+
+@pytest.mark.parametrize("case", ["k3_widths_not_multiple_of_4", "k1_cmax_6", "k2_halo_two_ctas_uneven"])
+def test_emulated_bf16_kernel_matches_plain(emulated_lib, case):
+    """bf16 storage: x read as bf16, each layer's output rounded to bf16, out written
+    in bf16 (the last layer's v in the f32 buffer).  Held against hourglass_plain in
+    f64 without rounding: the kernel's error within twice the plain bf16 twin's own
+    (its rounding is the error) plus 1e-4."""
+    x, mask, Ws, atts, vecs, chans, gid, K, cluster = _emulated_case(case)
+    x = x.to(torch.bfloat16)
+    exact = hg.hourglass_plain(x.double(), mask, Ws.double(), atts.double(), vecs.double(), chans,
+                               gid, K)
+    twin = hg.hourglass_plain(x, mask, Ws, atts, vecs, chans, gid, K)
     got = _run(emulated_lib, x, mask, Ws, atts, vecs, chans, gid, K, cluster)
-    assert torch.isfinite(got).all()
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert got.dtype == twin.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    err = (got.double() - exact).abs().max().item()
+    twin_err = (twin.double() - exact).abs().max().item()
+    assert twin_err > 0  # the rounding is there
+    assert err <= 2.0 * twin_err + 1e-4, (err, twin_err)
 
 
 def test_emulated_cluster_choice(emulated_lib):

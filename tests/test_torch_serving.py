@@ -22,6 +22,7 @@ from building_gan_torch.serving.batcher import PyBatcher
 
 from test_torch_layers import port_cfg
 from test_train import tiny_cfg
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 
 def test_batcher_forms_batches():
@@ -91,9 +92,20 @@ def server(serve_cfg):
     srv.stop()
 
 
-def test_server_alone_equals_batched(server, synthetic_samples):
+def _await_pending(server, n, timeout_s=60.0):
+    deadline = time.monotonic() + timeout_s
+    while server._batcher.pending() < n:
+        assert time.monotonic() < deadline, f"{server._batcher.pending()} of {n} requests queued"
+        time.sleep(0.005)
+
+
+def test_server_alone_equals_batched(serve_cfg, synthetic_samples):
+    """Four requests from four threads, queued before the executor starts, so they
+    form one batch whatever the host's load; then each alone, bit for bit."""
     samples = synthetic_samples[:4]
     results = [None] * len(samples)
+    server = InferenceServer(serve_cfg, _weights(serve_cfg, 0), max_batch=4, max_delay_ms=20.0,
+                             device="cpu")
 
     def worker(i):
         results[i] = server.infer(*samples[i], seed=100 + i, timeout_s=120.0)
@@ -101,19 +113,27 @@ def test_server_alone_equals_batched(server, synthetic_samples):
     threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(samples))]
     for th in threads:
         th.start()
-    for th in threads:
-        th.join(timeout=120)
-    assert not any(th.is_alive() for th in threads)
-    assert all(r is not None for r in results)
-    assert any(s > 1 for s in server.batch_sizes), server.batch_sizes
+    try:
+        _await_pending(server, len(samples))
+        server.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in threads)
+        assert all(r is not None for r in results)
+        assert server.batch_sizes == [4]
+        alone = [server.infer(local, voxel, seed=100 + i, timeout_s=120.0)
+                 for i, (local, voxel) in enumerate(samples)]
+        other = server.infer(*samples[0], seed=999, timeout_s=120.0)
+    finally:
+        server.stop()
+    assert server.batch_sizes == [4, 1, 1, 1, 1, 1]
     for i, (local, voxel) in enumerate(samples):
-        alone = server.infer(local, voxel, seed=100 + i, timeout_s=120.0)
+        alone_i = alone[i]
         n = voxel.x.shape[0]
-        assert alone["logits"].shape == (n, 7) and alone["types"].shape == (n,)
-        np.testing.assert_array_equal(alone["types"], results[i]["types"])
-        np.testing.assert_allclose(alone["logits"], results[i]["logits"], rtol=0, atol=1e-6)
-        assert ((alone["types"] >= 0) & (alone["types"] < 7)).all()
-    other = server.infer(*samples[0], seed=999, timeout_s=120.0)
+        assert alone_i["logits"].shape == (n, 7) and alone_i["types"].shape == (n,)
+        np.testing.assert_array_equal(alone_i["types"], results[i]["types"])
+        np.testing.assert_allclose(alone_i["logits"], results[i]["logits"], rtol=0, atol=1e-6)
+        assert ((alone_i["types"] >= 0) & (alone_i["types"] < 7)).all()
     assert not np.array_equal(other["label_soft"], results[0]["label_soft"])  # seed matters
 
 
@@ -154,19 +174,24 @@ def test_server_swap_params(serve_cfg, synthetic_samples):
     np.testing.assert_array_equal(after["logits"], want["logits"])
 
 
-@pytest.mark.parametrize("dtype,raises", [("bfloat16", True), ("float16", True), ("float32", False)])
-def test_server_takes_only_float32(serve_cfg, dtype, raises):
-    """A config at another COMPUTE_DTYPE (bf16 is the default) is refused, not computed in f32."""
+@pytest.mark.parametrize("dtype,raises", [("bfloat16", False), ("float16", True), ("float32", False)])
+def test_server_takes_float32_and_bfloat16(serve_cfg, dtype, raises):
+    """float32 and bf16 (the default) are served at that dtype; float16 is refused, naming the field."""
     cfg = serve_cfg.replace(COMPUTE_DTYPE=dtype)
     weights = _weights(serve_cfg, 0)
     if raises:
-        with pytest.raises(ValueError, match="COMPUTE_DTYPE"):
+        with pytest.raises(ValueError, match="COMPUTE_DTYPE='float16' is not ported"):
             InferenceServer(cfg, weights, max_batch=2, device="cpu")
     else:
-        InferenceServer(cfg, weights, max_batch=2, device="cpu")
+        srv = InferenceServer(cfg, weights, max_batch=2, device="cpu")
+        model, _ = srv._weights
+        assert model.compute_dtype == getattr(torch, dtype)
+        assert {p.dtype for p in model.parameters()} == {torch.float32}
 
 
-def test_server_refuses_the_default_config():
-    assert Configuration().COMPUTE_DTYPE == "bfloat16"
-    with pytest.raises(ValueError, match="COMPUTE_DTYPE='bfloat16' is not ported"):
-        InferenceServer(Configuration(), {}, device="cpu")
+def test_server_takes_the_default_config():
+    cfg = Configuration()
+    assert cfg.COMPUTE_DTYPE == "bfloat16"
+    torch.manual_seed(0)
+    srv = InferenceServer(cfg, GridVoxelGNNGenerator(cfg).state_dict(), device="cpu")
+    assert srv._weights[0].compute_dtype == torch.bfloat16

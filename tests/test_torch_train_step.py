@@ -27,7 +27,7 @@ from building_gan_torch.config import Configuration
 from building_gan_torch.models.grid_models import GridVoxelGNNDiscriminator, GridVoxelGNNGenerator
 from building_gan_torch.ops import gat_train as gt
 from building_gan_torch.train import state as TS
-from building_gan_torch.train.step import make_train_step
+from building_gan_torch.train.step import make_eval_step, make_train_step
 
 from test_torch_layers import multi_batch, port_batch, port_cfg
 from test_train import tiny_cfg
@@ -121,27 +121,31 @@ def test_train_state_defaults_to_the_card_and_step_refuses_another_device(step_c
         make_train_step(cfg, state)(batch, torch.Generator().manual_seed(1))
 
 
-@pytest.mark.parametrize("dtype,raises", [("bfloat16", True), ("float16", True), ("float32", False)])
-def test_train_entry_points_take_only_float32(step_case, dtype, raises):
-    """create_train_state and make_train_step refuse a COMPUTE_DTYPE the port does not take."""
+@pytest.mark.parametrize("dtype,raises", [("bfloat16", False), ("float16", True), ("float32", False)])
+def test_train_entry_points_take_float32_and_bfloat16(step_case, dtype, raises):
+    """create_train_state, make_train_step and make_eval_step take f32 and bf16;
+    float16 is refused, naming the field and the entry point."""
     cfg, _, state = step_case
     other = cfg.replace(COMPUTE_DTYPE=dtype)
-    modules = (GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg))
+    modules = (GridVoxelGNNGenerator(other), GridVoxelGNNDiscriminator(other))
     if raises:
-        with pytest.raises(ValueError, match="COMPUTE_DTYPE"):
-            TS.create_train_state(other, *modules, device="cpu")
-        with pytest.raises(ValueError, match="COMPUTE_DTYPE"):
-            make_train_step(other, state)
+        for make, args in ((TS.create_train_state, modules), (make_train_step, (state,)),
+                           (make_eval_step, (state,))):
+            with pytest.raises(ValueError, match=f"{make.__name__}: COMPUTE_DTYPE='float16'"):
+                make(other, *args, **({"device": "cpu"} if make is TS.create_train_state else {}))
     else:
-        TS.create_train_state(other, *modules, device="cpu")
-        make_train_step(other, state)
+        made = TS.create_train_state(other, *modules, device="cpu")
+        for m in (made.generator, made.discriminator):
+            assert m.compute_dtype == getattr(torch, dtype)
+            assert {p.dtype for p in m.parameters()} == {torch.float32}
+        make_train_step(other, made)
+        make_eval_step(other, made)
 
 
-def test_train_entry_points_refuse_the_default_config(step_case):
-    _, _, state = step_case
+def test_train_entry_points_take_the_default_config(step_case):
     cfg = Configuration()
-    assert cfg.COMPUTE_DTYPE == "bfloat16"
-    with pytest.raises(ValueError, match="create_train_state: COMPUTE_DTYPE='bfloat16'"):
-        TS.create_train_state(cfg, torch.nn.Linear(1, 1), torch.nn.Linear(1, 1), device="cpu")
-    with pytest.raises(ValueError, match="make_train_step: COMPUTE_DTYPE='bfloat16'"):
-        make_train_step(cfg, state)
+    assert (cfg.COMPUTE_DTYPE, cfg.GP_DTYPE) == ("bfloat16", "compute")
+    state = TS.create_train_state(cfg, GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg),
+                                  device="cpu")
+    make_train_step(cfg, state)
+    make_eval_step(cfg, state)

@@ -325,8 +325,15 @@ def test_cli_synth_preprocess_train_test(tiny_cli, tmp_path, capsys):
     assert set(values) == {"f1_score_test", "f1_score_min_test", "precision_score_test",
                            "recall_score_test", "accuracy_score_test"}
     assert all(np.isfinite(v) for v in values.values())
-    with pytest.raises(ValueError, match=r"COMPUTE_DTYPE='bfloat16'.*--compute-dtype float32"):
-        tiny_cli.main(["train", "--save-data-path", npz, "--log-dir", run, "--device", "cpu"])
+    # the JAX package's defaults (COMPUTE_DTYPE bfloat16, GP_DTYPE compute) run too
+    run16 = str(tmp_path / "run_bf16")
+    default = ["--save-data-path", npz, "--log-dir", run16, "--device", "cpu", "--slot-graphs", "3",
+               "--grid-local-nodes", "128"]
+    tiny_cli.main(["train", "--epochs", "1"] + default)
+    assert "epoch 1:" in capsys.readouterr().out and ckpt.exists(run16)
+    tiny_cli.main(["test"] + default)
+    out = capsys.readouterr().out
+    assert all(np.isfinite(float(ln.split(":")[1])) for ln in out.splitlines() if "_test:" in ln)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tiny_cli.main(["train", "--save-data-path", npz, "--log-dir", run,
