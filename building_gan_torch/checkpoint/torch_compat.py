@@ -23,7 +23,22 @@ The critic (``discriminator_params_to_state_dict``): ``mlp_i`` ->
 ``mlp_encoder.{2i}``, ``encoder`` as above, ``dec_i`` -> ``decoder.{2i}``,
 ``dec_out`` -> ``decoder.6``.
 
-(T): torch Linear stores (out, in), flax Dense (in, out).  GATCONV only.
+The other convs' leaves (``encoder/conv_i/...``) take PyG's names, the
+reference's library (the JAX package's own converter maps GATCONV only):
+
+    GATv2Conv    lin_l.{weight,bias}, lin_r.{weight,bias}  <- lin_l/*, lin_r/*
+                 att (1, 1, C)                               <- att (C, 1)
+    GCNConv      lin.weight                                  <- lin/kernel (T)
+    GraphConv    lin_rel.weight                              <- lin_nbr/kernel (T)
+                 lin_root.weight                             <- lin_self/kernel (T)
+                 lin_rel.bias                                <- lin_self/bias
+
+PyG keeps GraphConv's one bias on ``lin_rel``; the JAX layer adds it with
+its self term.  Either way the layer's output is the same sum.  The flax
+edge-list and grid models share one parameter tree, and so do the port's:
+the output loads into both layouts.
+
+(T): torch Linear stores (out, in), flax Dense (in, out).
 """
 
 from __future__ import annotations
@@ -59,15 +74,29 @@ def _dense(out, base, path, v):
     out[f"{base}." + ("weight" if path[1] == "kernel" else "bias")] = v.T if path[1] == "kernel" else v
 
 
+# flax Dense leaves of the convs -> the reference (PyG) torch names: (module, param)
+_CONV_DENSE = {
+    ("lin", "kernel"): ("lin", "weight"),  # GATConv, GCNConv
+    ("lin_l", "kernel"): ("lin_l", "weight"),  # GATv2Conv
+    ("lin_l", "bias"): ("lin_l", "bias"),
+    ("lin_r", "kernel"): ("lin_r", "weight"),
+    ("lin_r", "bias"): ("lin_r", "bias"),
+    ("lin_nbr", "kernel"): ("lin_rel", "weight"),  # GraphConv: PyG's lin_rel ...
+    ("lin_self", "kernel"): ("lin_root", "weight"),  # ... and lin_root,
+    ("lin_self", "bias"): ("lin_rel", "bias"),  # which keeps the one bias on lin_rel
+}
+
+
 def _encoder_leaf(out, path, v, what):
-    """A GridHourglass leaf: conv_i -> module_{4i}, norm_i -> module_{4i+1}."""
+    """A hourglass leaf: conv_i -> module_{4i}, norm_i -> module_{4i+1}."""
     kind, i = path[1].rsplit("_", 1)
     i = int(i)
     if kind == "conv":
         base = f"encoder.module_{4 * i}"
-        if path[2] == "lin":
-            out[f"{base}.lin.weight"] = v.T
-        elif path[2] in ("att_src", "att_dst"):
+        if path[2:] in _CONV_DENSE:
+            module, name = _CONV_DENSE[path[2:]]
+            out[f"{base}.{module}.{name}"] = v.T if name == "weight" else v
+        elif path[2] in ("att_src", "att_dst", "att"):
             out[f"{base}.{path[2]}"] = v.T[None]  # torch: (1, heads=1, C)
         elif path[2] == "bias":
             out[f"{base}.bias"] = v
@@ -82,9 +111,7 @@ def _tensors(out: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 
 def generator_params_to_state_dict(params: dict, cfg) -> Dict[str, torch.Tensor]:
-    """Flax generator params (nested dict of arrays) -> the port's state_dict."""
-    if cfg.GENERATOR_CONV_TYPE != "GATCONV":
-        raise NotImplementedError("conversion implemented for GATCONV only")
+    """Flax generator params (nested dict of arrays) -> the port's state_dict (either layout)."""
     out: Dict[str, np.ndarray] = {}
     for path, v in _flatten(params).items():
         name = path[0]
@@ -106,9 +133,7 @@ def generator_params_to_state_dict(params: dict, cfg) -> Dict[str, torch.Tensor]
 
 
 def discriminator_params_to_state_dict(params: dict, cfg) -> Dict[str, torch.Tensor]:
-    """Flax critic params (nested dict of arrays) -> the port's critic state_dict."""
-    if cfg.DISCRIMINATOR_CONV_TYPE != "GATCONV":
-        raise NotImplementedError("conversion implemented for GATCONV only")
+    """Flax critic params (nested dict of arrays) -> the port's critic state_dict (either layout)."""
     out: Dict[str, np.ndarray] = {}
     for path, v in _flatten(params).items():
         name = path[0]

@@ -11,6 +11,10 @@ trainer runs on the card unless asked for the CPU.
         --epochs 1000
     python -m building_gan_torch.cli.main test --save-data-path data/npz --log-dir runs/a
 
+``--layout edges`` trains and tests on the packed edge-list layout (the
+``--pack-*`` budgets), ``--conv-type`` picks the generator's and the
+critic's conv (GATCONV, the default, is the one with fused CUDA kernels on
+the grid; GCNCONV, GRAPHCONV and GATV2CONV run as plain PyTorch).
 ``COMPUTE_DTYPE`` defaults to bfloat16 (f32 parameters, bf16 activations), as
 in the JAX package; ``--compute-dtype float32`` computes in f32.  A checkpoint
 holds f32 parameters at either dtype.  Flags for what the port does not have yet raise
@@ -68,9 +72,6 @@ def _add_config_overrides(p: argparse.ArgumentParser) -> None:
 
 def _not_ported(cfg) -> None:
     """Raise on a configuration the port cannot run yet, naming the ROADMAP item."""
-    if cfg.LAYOUT != "grid":
-        raise NotImplementedError("--layout edges: the edge-list layout is not ported yet "
-                                  "(ROADMAP Queue A item 9)")
     if cfg.GENERATOR_ARCH != "hourglass":
         raise NotImplementedError("--generator-arch transformer is not ported yet "
                                   "(ROADMAP Queue A item 9)")
@@ -82,9 +83,6 @@ def _not_ported(cfg) -> None:
                                   "(ROADMAP Queue A item 9)")
     if cfg.GRID_BUCKETS:
         raise NotImplementedError("--grid-buckets is not ported yet (ROADMAP Queue A item 9)")
-    if cfg.GENERATOR_CONV_TYPE != "GATCONV":
-        raise NotImplementedError(f"--conv-type {cfg.GENERATOR_CONV_TYPE}: only GATCONV is "
-                                  "ported (ROADMAP Queue A item 9)")
 
 
 def _build_config(args):
@@ -159,6 +157,8 @@ def _make_trainer(args):
     import torch
 
     from ..data.pipeline import GraphDataLoaders
+    from ..models.discriminator import VoxelGNNDiscriminator
+    from ..models.generator import VoxelGNNGenerator
     from ..models.grid_models import GridVoxelGNNDiscriminator, GridVoxelGNNGenerator
     from ..train.trainer import Trainer
 
@@ -167,8 +167,10 @@ def _make_trainer(args):
     cfg.require_ported_dtype(f"building_gan_torch {args.cmd}")  # before the data loads
     loaders = GraphDataLoaders(cfg)
     torch.manual_seed(cfg.SEED)  # the models' initial weights
-    gen = GridVoxelGNNGenerator(cfg)
-    disc = GridVoxelGNNDiscriminator(cfg)
+    if cfg.LAYOUT == "grid":
+        gen, disc = GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg)
+    else:  # the packed edge-list layout
+        gen, disc = VoxelGNNGenerator(cfg), VoxelGNNDiscriminator(cfg)
     return Trainer(gen, disc, loaders, cfg, log_dir=args.log_dir, device=args.device)
 
 

@@ -67,6 +67,32 @@ class GridBatch:
         """K: max buildings per grid slot (1 in single-building packing)."""
         return 1 if self.gid is None else self.graph_mask.shape[1]
 
+    # the accessors a ``PackedBatch`` shares, so losses, metrics and steps need no branch
+    @property
+    def cell_type(self) -> torch.Tensor:
+        return self.type
+
+    @property
+    def cell_mask(self) -> torch.Tensor:
+        return self.mask
+
+    @property
+    def cell_area(self) -> torch.Tensor:
+        """Each cell's (y, x) floor area, from its raw dimensions."""
+        return self.dimension[..., 1] * self.dimension[..., 2]
+
+    def per_graph_sum(self, values: torch.Tensor) -> torch.Tensor:
+        """Sum per-cell ``values`` per building: (B,), or (B, K) when multi-packed."""
+        if self.gid is not None and self.graphs_per_slot > 1:
+            oh = torch.nn.functional.one_hot(self.gid.long(), self.graphs_per_slot)
+            return torch.einsum("bfyxk,bfyx->bk", oh.to(values.dtype), values)
+        return values.sum((1, 2, 3))
+
+    @property
+    def metric_graphs(self) -> dict:
+        """How ``compute_metrics`` finds the buildings: per slot, or per (slot, gid)."""
+        return {"gid": self.gid, "num_graphs_per_slot": self.graphs_per_slot}
+
     def to(self, device, non_blocking: bool = False) -> "GridBatch":
         return GridBatch(
             **{

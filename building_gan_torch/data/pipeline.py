@@ -8,17 +8,20 @@ by building number (``DATA_SLICER``, and one datum in sanity mode);
 ``np.random.default_rng`` exactly as the JAX package does, so both packages
 give the same indices and the same batches in the same order.
 
-Batches are ``GridBatch``es of CPU tensors; the consumer moves them to its
-device (``GridBatch.to``).  ``prefetch`` packs on a host thread and makes no
-CUDA call there.
+Batches follow ``LAYOUT``: ``"grid"`` gives ``GridBatch``es, ``"edges"`` the
+packed edge-list layout's ``PackedBatch``es (``data/batching.py``, at the
+``PACK_*`` budgets), the layout for buildings that do not fit ``GRID_SHAPE``.
+Either holds CPU tensors; the consumer moves them to its device (``.to``).
+``prefetch`` packs on a host thread and makes no CUDA call there.
 
-Not ported: ``LAYOUT="edges"`` and ``GRID_BUCKETS`` raise (ROADMAP Queue A
-item 9).  ``DEVICE_RESIDENT_DATA`` only schedules TPU transfers in the JAX
-package and is accepted and ignored.
+Not ported: ``GRID_BUCKETS`` raises (ROADMAP Queue A item 9).
+``DEVICE_RESIDENT_DATA`` only schedules TPU transfers in the JAX package and
+is accepted and ignored.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import queue
 import threading
@@ -28,17 +31,13 @@ import numpy as np
 import torch
 
 from ..config import Configuration
+from . import batching
 from . import grid as gridlib
 from .preprocess import LocalGraph, VoxelGraph, load_local, load_voxel
 
 
-def _require_grid_layout(cfg: Configuration) -> None:
+def _require_ported_layout(cfg: Configuration) -> None:
     """Raise on the batch layouts the port does not have."""
-    if cfg.LAYOUT != "grid":
-        raise NotImplementedError(
-            f"LAYOUT={cfg.LAYOUT!r}: the packed edge-list layout is not ported yet "
-            "(ROADMAP Queue A item 9); use LAYOUT='grid'"
-        )
     if cfg.GRID_BUCKETS:
         raise NotImplementedError("GRID_BUCKETS is not ported yet (ROADMAP Queue A item 9)")
 
@@ -80,15 +79,16 @@ class GraphDataset:
         return len(self.samples)
 
 
-def null_like(pack: gridlib.GridBatch) -> gridlib.GridBatch:
-    """An all-masked-out pack of the same shape, to complete a device group.
+def null_like(pack):
+    """An all-masked-out pack of the same shape (a ``GridBatch`` or ``PackedBatch``), to
+    complete a device group.
 
     Every mask is zero, so a weighted cross-device aggregation gives it zero
     gradient and metric weight; ``site_area`` stays 1 to keep FAR division benign.
     """
     fields = {name: None if v is None else torch.zeros_like(v) for name, v in vars(pack).items()}
     fields["site_area"] = torch.ones_like(pack.site_area)
-    return gridlib.GridBatch(**fields)
+    return dataclasses.replace(pack, **fields)
 
 
 def prefetch(iterable, size: int = 2):
@@ -124,11 +124,12 @@ def prefetch(iterable, size: int = 2):
 
 
 class PackedLoader:
-    """Shuffled epoch iterator over ``GridBatch``es of ``GRID_BATCH`` slots.
+    """Shuffled epoch iterator over ``GridBatch``es of ``GRID_BATCH`` slots, or
+    (``LAYOUT="edges"``) over ``PackedBatch``es at the ``PACK_*`` budgets.
 
     Each ``__iter__`` re-shuffles (a torch DataLoader with ``shuffle=True``).
     With ``GRID_SLOT_GRAPHS`` > 1 the 3D first-fit packer places several
-    buildings a slot.  With ``n_device_batches`` set, batches are grouped,
+    buildings a grid slot.  With ``n_device_batches`` set, batches are grouped,
     completed with ``null_like`` packs, and stacked on a leading device axis.
     """
 
@@ -140,22 +141,25 @@ class PackedLoader:
         seed: int = 0,
         n_device_batches: Optional[int] = None,
     ):
-        _require_grid_layout(cfg)
+        _require_ported_layout(cfg)
         self.samples = list(samples)
         self.cfg = cfg
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
         self.n_device_batches = n_device_batches
-        bad = [v.data_number for _, v in self.samples
-               if not gridlib.grid_compatible(v, cfg.GRID_SHAPE)]
-        if bad:
-            raise ValueError(
-                f"{len(bad)} buildings are not grid-compatible (e.g. {bad[:3]}); "
-                "use a larger GRID_SHAPE"
-            )
+        if cfg.LAYOUT == "grid":
+            bad = [v.data_number for _, v in self.samples
+                   if not gridlib.grid_compatible(v, cfg.GRID_SHAPE)]
+            if bad:
+                raise ValueError(
+                    f"{len(bad)} buildings are not grid-compatible (e.g. {bad[:3]}); "
+                    "use LAYOUT='edges' or a larger GRID_SHAPE"
+                )
 
-    def _make_batches(self, samples) -> List[gridlib.GridBatch]:
+    def _make_batches(self, samples) -> list:
         cfg, B = self.cfg, self.cfg.GRID_BATCH
+        if cfg.LAYOUT != "grid":
+            return batching.pack_graphs(samples, cfg)
         if cfg.GRID_SLOT_GRAPHS > 1:
             slots = gridlib.plan_packing_slots(samples, cfg)
             return [gridlib.pack_grid_multi_from_slots(samples, slots[i: i + B], cfg, batch_slots=B)
@@ -172,10 +176,11 @@ class PackedLoader:
             return
         # every pack of a loader has one shape (no buckets), so groups are consecutive packs
         d = self.n_device_batches
+        stack = gridlib.stack_grid_batches if self.cfg.LAYOUT == "grid" else batching.stack_packs
         for i in range(0, len(packs), d):
             group = packs[i: i + d]
             group += [null_like(group[0]) for _ in range(d - len(group))]
-            yield gridlib.stack_grid_batches(group)
+            yield stack(group)
 
     def num_packs_per_epoch(self) -> int:
         return len(self._make_batches(self.samples))

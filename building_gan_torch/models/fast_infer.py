@@ -13,6 +13,13 @@ from __future__ import annotations
 import torch
 
 from ..ops.hourglass import hourglass_fwd, pack_gat_weights
+from .grid_layers import GridHourglass
+
+
+def fused_route(model) -> bool:
+    """Whether ``model`` runs its hourglass fused: a grid model whose conv (from the
+    configuration that built it) is GATCONV, the one conv with kernels."""
+    return isinstance(model.encoder, GridHourglass) and model.encoder.conv_type == "GATCONV"
 
 
 def prepare(model, cfg) -> dict:

@@ -1,4 +1,4 @@
-"""Grid-layout layers: GraphNorm, GAT conv, the hourglass stack, matched pooling.
+"""Grid-layout layers: GraphNorm, the conv registry, the hourglass stack, matched pooling.
 
 Each mirrors its counterpart in ``building_gan_tpu/models/grid_layers.py``
 on the flattened-row layout ``(B, R, C)``, R = F*Y*X, at the dtype of their
@@ -7,11 +7,16 @@ and statistics math runs in float32).  Submodules and
 parameters are named after the reference ``state_dict`` layout
 (``encoder.module_{4i}.lin.weight``, ``encoder.module_{4i+1}.mean_scale``,
 ...), so converted weights load with ``load_state_dict`` unchanged.
+
+The conv registry (``GRID_CONV_REGISTRY``) holds the reference's four convs
+by name, their parameters named as PyG names them: GATConv (``lin``,
+``att_src``, ``att_dst``, ``bias``), GATv2Conv (``lin_l``, ``lin_r``, ``att``,
+``bias``), GCNConv (``lin``, ``bias``) and GraphConv (``lin_rel`` with the
+layer's one bias, ``lin_root``).  The edge-list layers (``models/layers.py``)
+carry the same names, so one ``state_dict`` loads into both layouts.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 import torch.nn.functional as F
@@ -19,28 +24,7 @@ from torch import nn
 
 from ..ops import dropout, stencil
 from ..ops.hourglass import hourglass_channel_pairs
-
-
-def hourglass_channels(hidden_dim: int, repeat: int, min_channels: int = 1) -> list[int]:
-    """The hourglass schedule: ``repeat`` halvings then ``repeat`` doublings,
-    each clamped at ``min_channels`` (1 = the reference schedule).
-
-    hidden 128, repeat 7 -> [64, 32, 16, 8, 4, 2, 1, 2, 4, ..., 128].
-    """
-    if not 1 <= min_channels <= hidden_dim:
-        raise ValueError(
-            f"HOURGLASS_MIN_CHANNELS must be in [1, hidden_dim={hidden_dim}], "
-            f"got {min_channels}"
-        )
-    channels = []
-    c = hidden_dim
-    for _ in range(repeat):
-        c //= 2
-        channels.append(max(c, min_channels))
-    for _ in range(repeat):
-        c *= 2
-        channels.append(max(c, min_channels))
-    return channels
+from .layers import Dense, conv_class, glorot_att, hourglass_channels
 
 
 def graph_norm(
@@ -61,8 +45,12 @@ def graph_norm(
     Masked cells take no part in the statistics and come out as 0.  The
     statistics are taken in float32 (or in x's dtype when it is wider);
     ``scale`` and ``shift`` are then rounded to x's dtype and applied in it,
-    as ``building_gan_tpu/models/grid_layers.py::GridGraphNorm`` does (with
-    K > 1 the squares, too, are taken in x's dtype before their f32 sums).
+    as ``building_gan_tpu/models/grid_layers.py::GridGraphNorm`` does.  With
+    K > 1 the squares are taken in f32 too, as the JAX package's jitted layer
+    computes them (XLA keeps the f32 product inside its one-hot einsum) and
+    as the fused kernels do: squares rounded to bf16 can make a near-constant
+    building's variance 0, and its gradient penalty ~1e6 (one 2-cell
+    building of a K = 6 slot did).
     """
     dt = torch.promote_types(x.dtype, torch.float32)
     m = mask.to(dt)[..., None]
@@ -70,8 +58,9 @@ def graph_norm(
         oh = F.one_hot(gid.long().clamp(min=0), num_graphs).to(dt)
         oh = oh * ((gid >= 0) & (gid < num_graphs)).to(dt)[..., None] * m  # (B, R, K)
         counts = oh.sum(dim=1).clamp(min=1.0)  # (B, K)
-        s1 = torch.einsum("brk,brc->bkc", oh, x.to(dt))
-        s2 = torch.einsum("brk,brc->bkc", oh, (x * x).to(dt))
+        xf = x.to(dt)
+        s1 = torch.einsum("brk,brc->bkc", oh, xf)
+        s2 = torch.einsum("brk,brc->bkc", oh, xf * xf)
         mean = s1 / counts[..., None]
         ex2 = s2 / counts[..., None]
         s = mean * mean_scale
@@ -121,10 +110,8 @@ class GridGATConv(nn.Module):
         super().__init__()
         self.negative_slope = negative_slope
         self.lin = nn.Linear(in_features, features, bias=False)
-        # torch layout of the reference: (1, heads=1, C)
-        bound = math.sqrt(6.0 / (features + 1))
-        self.att_src = nn.Parameter(torch.empty(1, 1, features).uniform_(-bound, bound))
-        self.att_dst = nn.Parameter(torch.empty(1, 1, features).uniform_(-bound, bound))
+        self.att_src = glorot_att(features)  # torch layout of the reference: (1, heads=1, C)
+        self.att_dst = glorot_att(features)
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x, mask, grid_shape, gid=None):
@@ -142,29 +129,97 @@ class GridGATConv(nn.Module):
         return out + self.bias.to(out.dtype)
 
 
+class GridGATv2Conv(nn.Module):
+    """Single-head GATv2 over the 6-neighbourhood (PyG GATv2Conv, share_weights=False).
+
+    ``lin_l`` transforms the source, ``lin_r`` the target, both with a bias;
+    the scores are ``att . LeakyReLU(h_l[j] + h_r[i])``.
+    """
+
+    def __init__(self, in_features: int, features: int, negative_slope: float = 0.2):
+        super().__init__()
+        self.negative_slope = negative_slope
+        self.lin_l = Dense(in_features, features)
+        self.lin_r = Dense(in_features, features)
+        self.att = glorot_att(features)
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x, mask, grid_shape, gid=None):
+        out = stencil.stencil_gatv2_flat(
+            self.lin_l(x), self.lin_r(x), self.att.reshape(-1), mask, grid_shape,
+            negative_slope=self.negative_slope, gid=gid,
+        )
+        return out + self.bias.to(out.dtype)
+
+
+class GridGCNConv(nn.Module):
+    """GCN over the 6-neighbourhood with symmetric normalisation over A + I (PyG GCNConv)."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.lin = Dense(in_features, features, bias=False)
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x, mask, grid_shape, gid=None):
+        out = stencil.stencil_gcn_flat(self.lin(x), mask, grid_shape, gid=gid)
+        return out + self.bias.to(out.dtype)
+
+
+class GridGraphConv(nn.Module):
+    """GraphConv over the 6-neighbourhood: ``lin_root(x_i) + lin_rel(sum_j x_j)`` (PyG GraphConv).
+
+    PyG keeps the layer's one bias on ``lin_rel``; the JAX package keeps it on
+    its self term (``lin_self``).  The output is the same sum, computed as the
+    JAX layer orders it: ``(W_root x + b) + sum_j W_rel x_j``.  The self term
+    is not masked here: the norm's masked statistics and its masked output
+    take care of padded cells.
+    """
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.lin_rel = Dense(in_features, features)
+        self.lin_root = Dense(in_features, features, bias=False)
+
+    def forward(self, x, mask, grid_shape, gid=None):
+        agg = stencil.stencil_sum_flat(F.linear(x, self.lin_rel.weight.to(x.dtype)), mask,
+                                       grid_shape, gid=gid)
+        h_self = F.linear(x, self.lin_root.weight.to(x.dtype), self.lin_rel.bias.to(x.dtype))
+        return h_self + agg
+
+
+GRID_CONV_REGISTRY = {
+    "GCNCONV": GridGCNConv,
+    "GRAPHCONV": GridGraphConv,
+    "GATCONV": GridGATConv,
+    "GATV2CONV": GridGATv2Conv,
+}
+
+
 class GridHourglass(nn.Module):
-    """Hourglass of GAT conv -> GraphNorm -> ReLU -> dropout layers.
+    """Hourglass of conv -> GraphNorm -> ReLU -> dropout layers, the conv by name.
 
     Layer i's conv is ``module_{4i}`` and its norm ``module_{4i+1}``; the
     reference's ReLU and Dropout at ``4i+2``, ``4i+3`` hold no parameters.
     In training mode (``deterministic=False``) each layer's dropout is the
     Philox byte-threshold mask of ``ops/dropout.py`` under that layer's key
     ``keys[i]``, counted over the stack's padded width ``hidden_dim``: the
-    same mask the fused kernels draw from the same keys.
+    same mask the fused kernels draw from the same keys.  Only a GATCONV
+    stack has fused kernels (``models/fast_train.py``, ``models/fast_infer.py``);
+    the other convs run this module.
     """
 
     def __init__(self, hidden_dim: int, repeat: int, min_channels: int = 1,
                  conv_type: str = "GATCONV", dropout_rate: float = 0.2):
         super().__init__()
-        if conv_type != "GATCONV":
-            raise NotImplementedError(f"grid hourglass conv {conv_type!r}: only GATCONV is ported")
+        conv_cls = conv_class(GRID_CONV_REGISTRY, conv_type)
+        self.conv_type = conv_type
         self.hidden_dim = hidden_dim
         self.dropout_rate = dropout_rate
         self.channels = hourglass_channels(hidden_dim, repeat, min_channels)
         self.channel_pairs = hourglass_channel_pairs(hidden_dim, repeat, min_channels)
         cin = hidden_dim
         for i, ch in enumerate(self.channels):
-            self.add_module(f"module_{4 * i}", GridGATConv(cin, ch))
+            self.add_module(f"module_{4 * i}", conv_cls(cin, ch))
             self.add_module(f"module_{4 * i + 1}", GridGraphNorm(ch))
             cin = ch
 

@@ -7,10 +7,13 @@ dtypes: parameters float32, activations in ``COMPUTE_DTYPE`` (the models'
 local features, z, the label); the generator's logits and the critic's
 scores come out in float32.  Submodules are named after the
 reference ``state_dict``.  Generator:
-``matched_features_encoder``, ``mlp_encoder``, ``encoder`` (the GAT
-hourglass) and ``decoder`` (four MLP blocks, then the 7-way head at
+``matched_features_encoder``, ``mlp_encoder``, ``encoder`` (the
+hourglass, its conv by ``GENERATOR_CONV_TYPE``) and ``decoder`` (four MLP blocks, then the 7-way head at
 ``decoder.12``).  Critic: ``mlp_encoder.{0,2}`` (Linear, ReLU), ``encoder``
-and ``decoder.{0,2,4,6}`` (Linear, ReLU, ..., the score head).
+and ``decoder.{0,2,4,6}`` (Linear, ReLU, ..., the score head).  The edge-list
+models (``models/generator.py``, ``models/discriminator.py``) subclass these
+with the edge-list hourglass (``hourglass_cls``), so one ``state_dict`` loads
+into either layout.
 
 Both run deterministic by default; ``deterministic=False`` with per-layer
 Philox ``keys`` turns the hourglass dropout on (training mode).
@@ -33,6 +36,8 @@ VOXEL_FEATURES = 12
 class GridVoxelGNNGenerator(nn.Module):
     """Generator over a ``GridBatch``: -> (logits, label_hard, label_soft), grid-shaped."""
 
+    hourglass_cls = GridHourglass
+
     def __init__(self, configuration: Configuration):
         super().__init__()
         cfg = configuration
@@ -47,7 +52,7 @@ class GridVoxelGNNGenerator(nn.Module):
         self.mlp_encoder = mlp_stack(
             lh + VOXEL_FEATURES + z, [gh] * (1 + cfg.GENERATOR_MLP_ENCODER_REPEAT)
         )
-        self.encoder = GridHourglass(
+        self.encoder = self.hourglass_cls(
             gh, cfg.GENERATOR_ENCODER_REPEAT, cfg.HOURGLASS_MIN_CHANNELS,
             conv_type=cfg.GENERATOR_CONV_TYPE, dropout_rate=cfg.ENCODER_DROPOUT_RATE,
         )
@@ -106,6 +111,8 @@ class GridVoxelGNNDiscriminator(nn.Module):
     the gradient penalty (``GP_DTYPE="float32"``).
     """
 
+    hourglass_cls = GridHourglass
+
     def __init__(self, configuration: Configuration):
         super().__init__()
         cfg = configuration
@@ -120,7 +127,7 @@ class GridVoxelGNNDiscriminator(nn.Module):
             Dense(LOCAL_FEATURES + VOXEL_FEATURES + NUM_CLASSES, d), nn.ReLU(),
             Dense(d, d), nn.ReLU(),
         )
-        self.encoder = GridHourglass(
+        self.encoder = self.hourglass_cls(
             d, cfg.DISCRIMINATOR_ENCODER_REPEAT, cfg.HOURGLASS_MIN_CHANNELS,
             conv_type=cfg.DISCRIMINATOR_CONV_TYPE, dropout_rate=cfg.ENCODER_DROPOUT_RATE,
         )

@@ -7,8 +7,10 @@ Port of ``building_gan_tpu/serving/server.py``:
 - the batcher forms micro-batches under a size-or-deadline policy;
 - one executor thread packs each micro-batch into a fixed-slot ``GridBatch``
   (always ``max_batch`` slots, so every batch has one shape) and runs the
-  generator with its hourglass fused (``models/fast_infer.py``): the CUDA
-  kernel when the server's device is a GPU;
+  generator: a GATCONV generator with its hourglass fused
+  (``models/fast_infer.py``: the CUDA kernel when the server's device is a
+  GPU), a generator of any other conv as its plain module (the route read
+  from ``GENERATOR_CONV_TYPE``, as the train step reads it);
 - z and the Gumbel noise of a request come from a ``torch.Generator`` seeded
   by the request's seed, so a building's output does not depend on its
   batchmates (the fused kernel keeps slots apart and uses no atomics);
@@ -29,6 +31,7 @@ import torch
 from ..config import NUM_CLASSES, Configuration
 from ..data import grid as gridlib
 from ..models import fast_infer
+from ..models.fast_infer import fused_route
 from ..models.grid_models import GridVoxelGNNGenerator
 from ..ops.gumbel import gumbel_noise
 from ..ops.rng import normal_box_muller
@@ -71,10 +74,11 @@ class InferenceServer:
         self.batch_sizes: list = []  # diagnostics: sizes of executed batches
 
     def _load(self, state_dict):
+        """(model, packed hourglass weights on the fused route, else None)."""
         model = GridVoxelGNNGenerator(self.configuration)
         model.load_state_dict(state_dict)
         model = model.to(self.device).eval()
-        return model, fast_infer.prepare(model, self.configuration)
+        return model, fast_infer.prepare(model, self.configuration) if fused_route(model) else None
 
     # ------------------------------------------------------------------
     def start(self) -> "InferenceServer":
@@ -118,7 +122,11 @@ class InferenceServer:
         batch = gridlib.pack_grid(samples, self.configuration, batch_slots=self.max_batch)
         batch = batch.to(self.device)
         z, g = self._noise(seeds)
-        logits, hard, soft = fast_infer.infer(model, packed, batch, z, gumbel_noise=g)
+        if packed is None:
+            with torch.no_grad():
+                logits, hard, soft = model(batch, z, gumbel_noise=g)
+        else:
+            logits, hard, soft = fast_infer.infer(model, packed, batch, z, gumbel_noise=g)
         return logits.cpu().numpy(), hard.cpu().numpy(), soft.cpu().numpy()
 
     def _run(self) -> None:

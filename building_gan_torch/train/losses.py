@@ -1,6 +1,6 @@
-"""WGAN-GP and auxiliary losses on the grid layout.
+"""WGAN-GP and auxiliary losses, on either layout (grid or packed edge list).
 
-Port of ``building_gan_tpu/train/losses.py`` (grid layout):
+Port of ``building_gan_tpu/train/losses.py``:
 
 - critic loss ``mean(D(fake)) - mean(D(real)) + GP`` with means over real
   cells only;
@@ -17,6 +17,11 @@ Port of ``building_gan_tpu/train/losses.py`` (grid layout):
 The BCE losses of ``USE_WGANGP=False`` are not ported: these raise on it.
 
 Noise (the GP's eps) is passed in, or drawn from an explicit ``torch.Generator``.
+
+A batch of either layout gives its cells' types, mask and floor areas and
+sums per building (``per_graph_sum``): a ``GridBatch`` by dense axis sums
+(per slot, or per (slot, gid) building), a ``PackedBatch`` by segment sums
+keyed on its voxel graph ids.
 """
 
 from __future__ import annotations
@@ -97,8 +102,8 @@ def generator_loss(
 ) -> tuple[torch.Tensor, dict]:
     """Generator loss and its terms (``g_loss_adv``, ``_label``, ``_ratio``, ``_ratio_void``, ``_far``)."""
     _require_wgangp(cfg)
-    voxel_mask = batch.mask
-    types_onehot = F.one_hot(batch.type.long(), NUM_CLASSES).to(logits.dtype) * voxel_mask[..., None]
+    voxel_mask = batch.cell_mask
+    types_onehot = F.one_hot(batch.cell_type.long(), NUM_CLASSES).to(logits.dtype) * voxel_mask[..., None]
 
     g_loss_adv = -masked_mean(d_apply(label_hard), voxel_mask) * cfg.LAMBDA_ADV
 
@@ -129,16 +134,10 @@ def generator_loss(
 
 
 def generated_far(batch, label_hard: torch.Tensor) -> torch.Tensor:
-    """Per-graph floor-area ratio of the generated labels: (B,) or (B, K).
+    """Per-graph floor-area ratio of the generated labels: (B,) or (B, K) on the grid, (G,) packed.
 
     GFA = sum of (dim_y * dim_x) over generated non-void cells; FAR = GFA / site_area.
     """
     gen_type = label_hard.argmax(-1)
-    nonvoid = (gen_type != VOID).to(label_hard.dtype) * batch.mask
-    area = batch.dimension[..., 1] * batch.dimension[..., 2]
-    if batch.gid is not None and batch.graphs_per_slot > 1:
-        oh = F.one_hot(batch.gid.long(), batch.graphs_per_slot).to(label_hard.dtype)
-        gfa = torch.einsum("bfyxk,bfyx->bk", oh, area * nonvoid)
-    else:
-        gfa = (area * nonvoid).sum((1, 2, 3))
-    return gfa / batch.site_area.clamp(min=1e-6)
+    nonvoid = (gen_type != VOID).to(label_hard.dtype) * batch.cell_mask
+    return batch.per_graph_sum(batch.cell_area * nonvoid) / batch.site_area.clamp(min=1e-6)

@@ -1,11 +1,12 @@
-"""Classification metrics from masked confusion matrices, on the grid layout.
+"""Classification metrics from masked confusion matrices, on either layout.
 
-Port of ``building_gan_tpu/train/metrics.py`` (grid layout): the 7 x 7
+Port of ``building_gan_tpu/train/metrics.py``: the 7 x 7
 confusion matrix (rows true, columns predicted) and sklearn's
 ``average='macro', zero_division=0`` semantics: per-class precision / recall
 / F1 with 0 where a denominator is 0, the macro mean over the classes
 present in y_true or y_pred.  Per-graph scores come from per-graph
-matrices: per slot, or per (slot, building) on a K > 1 batch.
+matrices: per slot, or per (slot, building) on a K > 1 grid batch, or per
+graph id of a packed batch (one scatter-add, the padding's dummy graph dropped).
 ``hist_quantile`` reads the trainer's epoch-summed per-graph F1 histogram on
 the host.
 """
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import NUM_CLASSES
+from ..ops.segment import segment_sum
 
 F1_HIST_BINS = 32
 
@@ -40,6 +42,19 @@ def scores_from_cm(cm: torch.Tensor) -> dict:
         "f1": (f1 * present).sum(-1) / n_present,
         "accuracy": tp.sum(-1) / total,
     }
+
+
+def confusion_matrix(y_true, y_pred, mask) -> torch.Tensor:
+    """(7, 7) matrix of 1-D labels, rows true, columns predicted; masked entries excluded."""
+    idx = y_true.long() * NUM_CLASSES + y_pred.long()
+    return segment_sum(mask.float(), idx, NUM_CLASSES * NUM_CLASSES).reshape(NUM_CLASSES, NUM_CLASSES)
+
+
+def per_graph_confusion_matrices(y_true, y_pred, mask, graph_id, num_graphs: int) -> torch.Tensor:
+    """(G, 7, 7) per-graph matrices of a packed batch; graph id G (the padding) is dropped."""
+    idx = (graph_id.long() * NUM_CLASSES + y_true.long()) * NUM_CLASSES + y_pred.long()
+    flat = segment_sum(mask.float(), idx, (num_graphs + 1) * NUM_CLASSES * NUM_CLASSES)
+    return flat.reshape(num_graphs + 1, NUM_CLASSES, NUM_CLASSES)[:num_graphs]
 
 
 def grid_confusion_matrices(y_true, y_pred, mask, gid=None, num_graphs: int = 1) -> torch.Tensor:
@@ -84,13 +99,18 @@ def _min_over_real(per_graph_f1, graph_mask) -> torch.Tensor:
 
 
 def compute_metrics(y_true, y_pred, mask, graph_mask, gid=None,
-                    num_graphs_per_slot: int = 1) -> dict:
+                    num_graphs_per_slot: int = 1, graph_id=None) -> dict:
     """Batch macro scores and the min per-graph F1 over real graphs.
 
-    ``(B, F, Y, X)`` labels; graphs are slots, or (slot, gid) with K > 1.
+    Grid: ``(B, F, Y, X)`` labels; graphs are slots, or (slot, gid) with K > 1.
+    Packed: 1-D labels with their ``graph_id`` (padding at G = ``graph_mask``'s length).
     """
-    cms = grid_confusion_matrices(y_true, y_pred, mask, gid, num_graphs_per_slot)
-    cm = cms.reshape(-1, NUM_CLASSES, NUM_CLASSES).sum(0)
+    if graph_id is not None:
+        cm = confusion_matrix(y_true, y_pred, mask)
+        cms = per_graph_confusion_matrices(y_true, y_pred, mask, graph_id, graph_mask.shape[0])
+    else:
+        cms = grid_confusion_matrices(y_true, y_pred, mask, gid, num_graphs_per_slot)
+        cm = cms.reshape(-1, NUM_CLASSES, NUM_CLASSES).sum(0)
     batch_scores = scores_from_cm(cm)
     per_graph = scores_from_cm(cms)
     return {

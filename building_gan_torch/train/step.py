@@ -1,17 +1,23 @@
 """The WGAN-GP train step and the eval step, on one device.
 
-Port of ``building_gan_tpu/train/step.py`` with ``USE_PALLAS_TRAIN`` (no
-``axis_name``): N_CRITIC critic updates, then one generator update, then the
-confusion-matrix metrics.  The generator and the real / fake critic passes
-run with the hourglass fused (``models/fast_train.py``: the CUDA kernels on a
-CUDA batch); the gradient-penalty critic pass runs the plain
-``GridVoxelGNNDiscriminator``, because the penalty is differentiated twice.
-It gets the same Philox dropout keys as that iteration's fused passes.
+Port of ``building_gan_tpu/train/step.py`` (no ``axis_name``): N_CRITIC
+critic updates, then one generator update, then the confusion-matrix
+metrics, on a ``GridBatch`` or a ``PackedBatch``.
+
+Each model's route is read from its configuration, per model
+(``models/fast_infer.py::fused_route``): a grid model whose conv is GATCONV
+runs its hourglass fused (``models/fast_train.py``: the CUDA kernels on a
+CUDA batch), as the JAX package does with ``USE_PALLAS_TRAIN``; a model with
+any other conv, and the edge-list models, run their plain modules, as the JAX
+package does without it.  The gradient-penalty critic pass always runs the plain critic,
+because the penalty is differentiated twice; it gets the same Philox
+dropout keys as that iteration's real / fake passes.
 
 Every random draw (z, the Gumbel noise, the GP's eps, the per-layer dropout
 keys) comes from the ``torch.Generator`` given to the step, on the batch's
 device.  z is drawn in f32 and cast to the compute dtype on the models'
-entry (the JAX step draws it in the compute dtype: the same values).
+entry (the JAX step draws it in the compute dtype: the same values); it is
+shaped like the batch's cells, (B, F, Y, X, Z_DIM) or (NV, Z_DIM).
 
 Dtypes are the JAX step's: f32 parameters and Adam state, activations in
 ``COMPUTE_DTYPE`` (bf16 by default, or f32), losses and metrics in f32, and
@@ -19,10 +25,10 @@ the gradient-penalty critic pass at ``GP_DTYPE`` ("compute", or "float32":
 the same critic's parameters run with f32 activations).
 
 The eval step (``make_eval_step``) is the JAX package's validation step: a
-deterministic generator forward with its hourglass fused
-(``models/fast_infer.py``: the serving kernel on a CUDA batch), the G loss
-against the deterministic critic (``models/fast_train.py``: the training
-layer's forward kernel), and the metrics; no update and no autograd graph.
+deterministic generator forward (fused on its route: the serving kernel,
+``models/fast_infer.py``), the G loss against the deterministic critic (fused
+on its route: the training layer's forward kernel), and the metrics; no
+update and no autograd graph.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch.nn.functional as F
 from ..config import NUM_CLASSES, Configuration
 from ..models import fast_infer
 from ..models import fast_train as FT
+from ..models.fast_infer import fused_route
 from ..ops.dropout import draw_keys
 from ..ops.gat_train import build_planes
 from ..ops.rng import normal_box_muller
@@ -47,9 +54,15 @@ METRIC_KEYS = ("f1", "f1_min", "precision", "recall", "accuracy", "per_graph_f1_
 
 
 def _check_device(batch, model_device) -> None:
-    if batch.mask.device != model_device:
-        raise ValueError(f"the batch is on {batch.mask.device}, the modules on {model_device}: "
+    mask = batch.cell_mask
+    if mask.device != model_device:
+        raise ValueError(f"the batch is on {mask.device}, the modules on {model_device}: "
                          "move the batch (batch.to(device)) first")
+
+
+def _metrics(batch, y_pred) -> dict:
+    return M.compute_metrics(batch.cell_type, y_pred, batch.cell_mask, batch.graph_mask,
+                             **batch.metric_graphs)
 
 
 def make_train_step(cfg: Configuration, state: TrainState) -> Callable:
@@ -68,30 +81,33 @@ def make_train_step(cfg: Configuration, state: TrainState) -> Callable:
     model_device = next(gen.parameters()).device
     n_gen_layers = len(gen.encoder.channels)
     n_disc_layers = len(disc.encoder.channels)
+    gen_fused, disc_fused = fused_route(gen), fused_route(disc)
     # the GP critic: the same critic, with f32 activations under GP_DTYPE "float32"
     # (building_gan_tpu/train/step.py clones it at f32), else at its own dtype
     gp_dtype = torch.float32 if cfg.GP_DTYPE == "float32" else None
 
-    def generator_forward(batch, planes, generator):
-        z = normal_box_muller(tuple(batch.mask.shape) + (cfg.Z_DIM,), generator)
-        return FT.generator_apply_fused(
-            gen, cfg, batch, z, generator=generator, keys=draw_keys(n_gen_layers, generator),
-            planes=planes,
-        )
+    def generator_forward(batch, mask, planes, generator):
+        z = normal_box_muller(tuple(mask.shape) + (cfg.Z_DIM,), generator)
+        keys = draw_keys(n_gen_layers, generator)
+        if gen_fused:
+            return FT.generator_apply_fused(gen, cfg, batch, z, generator=generator, keys=keys,
+                                            planes=planes)
+        return gen(batch, z, generator=generator, deterministic=False, keys=keys)
 
-    def critic_fused(batch, planes, keys):
-        return lambda label: FT.discriminator_apply_fused(disc, cfg, batch, label, keys, planes=planes)
+    def critic(batch, planes, keys):
+        if disc_fused:
+            return lambda label: FT.discriminator_apply_fused(disc, cfg, batch, label, keys,
+                                                              planes=planes)
+        return lambda label: disc(batch, label, deterministic=False, keys=keys)
 
-    def critic_update(batch, planes, types_onehot, generator):
+    def critic_update(batch, mask, planes, types_onehot, generator):
         with torch.no_grad():  # the generator's stop-gradient: nothing is saved
-            _, label_hard, label_soft = generator_forward(batch, planes, generator)
+            _, label_hard, label_soft = generator_forward(batch, mask, planes, generator)
         keys = draw_keys(n_disc_layers, generator)
-        eps = torch.rand(tuple(batch.mask.shape) + (1,), generator=generator,
-                         device=batch.mask.device)
+        eps = torch.rand(tuple(mask.shape) + (1,), generator=generator, device=mask.device)
         state.opt_d.zero_grad(set_to_none=True)
         d_loss = L.discriminator_loss(
-            critic_fused(batch, planes, keys), types_onehot, label_hard, label_soft,
-            batch.mask, cfg, eps=eps,
+            critic(batch, planes, keys), types_onehot, label_hard, label_soft, mask, cfg, eps=eps,
             d_apply_gp=lambda label: disc(batch, label, deterministic=False, keys=keys,
                                           dtype=gp_dtype),
         )
@@ -101,26 +117,23 @@ def make_train_step(cfg: Configuration, state: TrainState) -> Callable:
 
     def train_step(batch, generator: torch.Generator) -> dict:
         _check_device(batch, model_device)
-        mask = batch.mask
-        types_onehot = F.one_hot(batch.type.long(), NUM_CLASSES).float() * mask[..., None]
-        planes = build_planes(mask, batch.gid, batch.grid_shape)
+        mask = batch.cell_mask
+        types_onehot = F.one_hot(batch.cell_type.long(), NUM_CLASSES).float() * mask[..., None]
+        planes = build_planes(mask, batch.gid, batch.grid_shape) if gen_fused or disc_fused else None
 
         d_loss_sum = torch.zeros((), device=mask.device)
         for _ in range(cfg.N_CRITIC):
-            d_loss_sum = d_loss_sum + critic_update(batch, planes, types_onehot, generator)
+            d_loss_sum = d_loss_sum + critic_update(batch, mask, planes, types_onehot, generator)
 
         state.opt_g.zero_grad(set_to_none=True)
-        logits, label_hard, _ = generator_forward(batch, planes, generator)
+        logits, label_hard, _ = generator_forward(batch, mask, planes, generator)
         keys_d = draw_keys(n_disc_layers, generator)
-        g_loss, aux = L.generator_loss(critic_fused(batch, planes, keys_d), batch, logits,
-                                       label_hard, cfg)
+        g_loss, aux = L.generator_loss(critic(batch, planes, keys_d), batch, logits, label_hard, cfg)
         g_loss.backward(inputs=list(gen.parameters()))
         state.opt_g.step()
         state.step += 1
 
-        y_pred = label_hard.detach().argmax(-1)
-        m = M.compute_metrics(batch.type, y_pred, mask, batch.graph_mask, gid=batch.gid,
-                              num_graphs_per_slot=batch.graphs_per_slot)
+        m = _metrics(batch, label_hard.detach().argmax(-1))
         return {
             "g_loss": g_loss.detach(),
             "d_loss": d_loss_sum / max(cfg.N_CRITIC, 1),
@@ -135,15 +148,16 @@ def make_eval_step(cfg: Configuration, state: TrainState) -> Callable:
     """Build ``eval_step(batch, generator) -> metrics`` over ``state``: no update.
 
     z and the Gumbel noise are drawn from ``generator`` (z first), unless given
-    as ``z`` (B, F, Y, X, Z_DIM) and ``gumbel_noise`` (B, F, Y, X, 7).  The
-    generator's packed hourglass weights are cached until ``state.step``
-    moves.  Returns the G loss and its terms, the batch scores, the per-graph
-    F1 and its histogram and the confusion matrix, as tensors on the batch's
-    device.
+    as ``z`` (the batch's cells by Z_DIM) and ``gumbel_noise`` (cells by 7).  On
+    the fused route the generator's packed hourglass weights are cached until
+    ``state.step`` moves.  Returns the G loss and its terms, the batch scores,
+    the per-graph F1 and its histogram and the confusion matrix, as tensors on
+    the batch's device.
     """
     cfg.require_ported_dtype("make_eval_step")
     gen, disc = state.generator, state.discriminator
     model_device = next(gen.parameters()).device
+    gen_fused, disc_fused = fused_route(gen), fused_route(disc)
     packed = {"step": None}
 
     def weights():
@@ -152,20 +166,26 @@ def make_eval_step(cfg: Configuration, state: TrainState) -> Callable:
             packed["step"] = state.step
         return packed["weights"]
 
+    def critic(batch):
+        if disc_fused:
+            return lambda label: FT.discriminator_apply_fused(disc, cfg, batch, label,
+                                                              deterministic=True)
+        return lambda label: disc(batch, label, deterministic=True)
+
     @torch.no_grad()
     def eval_step(batch, generator: torch.Generator | None = None, *, z=None,
                   gumbel_noise=None) -> dict:
         _check_device(batch, model_device)
-        mask = batch.mask
+        mask = batch.cell_mask
         if z is None:
             z = normal_box_muller(tuple(mask.shape) + (cfg.Z_DIM,), generator)
-        logits, label_hard, _ = fast_infer.infer(gen, weights(), batch, z, gumbel_noise, generator)
-        g_loss, aux = L.generator_loss(
-            lambda label: FT.discriminator_apply_fused(disc, cfg, batch, label, deterministic=True),
-            batch, logits, label_hard, cfg,
-        )
-        m = M.compute_metrics(batch.type, label_hard.argmax(-1), mask, batch.graph_mask,
-                              gid=batch.gid, num_graphs_per_slot=batch.graphs_per_slot)
+        if gen_fused:
+            logits, label_hard, _ = fast_infer.infer(gen, weights(), batch, z, gumbel_noise,
+                                                     generator)
+        else:
+            logits, label_hard, _ = gen(batch, z, gumbel_noise=gumbel_noise, generator=generator)
+        g_loss, aux = L.generator_loss(critic(batch), batch, logits, label_hard, cfg)
+        m = _metrics(batch, label_hard.argmax(-1))
         return {"g_loss": g_loss, **aux, **{k: m[k] for k in METRIC_KEYS},
                 "per_graph_f1": m["per_graph_f1"]}
 

@@ -100,10 +100,10 @@ def _epoch_summary(rows: list, keys) -> dict:
 class Trainer:
     """Adversarial trainer with checkpoint / resume and a scalar log.
 
-    ``generator`` and ``discriminator`` are the port's grid models, their
-    weights initialised by the caller; the optimizers come from the
-    configuration (``train/state.py``).  Everything runs on ``device``, the
-    card unless the caller asks for the CPU.
+    ``generator`` and ``discriminator`` are the port's models of the loaders'
+    layout (grid, or the packed edge list), their weights initialised by the
+    caller; the optimizers come from the configuration (``train/state.py``).
+    Everything runs on ``device``, the card unless the caller asks for the CPU.
     """
 
     def __init__(
@@ -298,10 +298,14 @@ class Trainer:
     def generate(self, batch, generator: torch.Generator):
         """One generator forward at eval time -> (logits, label_hard, label_soft).
 
-        The hourglass runs fused (``models/fast_infer.py``: the serving kernel
-        on the card); z and then the Gumbel noise are drawn from ``generator``.
+        On the fused route (a GATCONV grid generator) the hourglass runs fused
+        (``models/fast_infer.py``: the serving kernel on the card); any other
+        generator runs its plain module.  z and then the Gumbel noise are drawn
+        from ``generator``.
         """
-        z = normal_box_muller(tuple(batch.mask.shape) + (self.configuration.Z_DIM,), generator)
+        z = normal_box_muller(tuple(batch.cell_mask.shape) + (self.configuration.Z_DIM,), generator)
+        if not fast_infer.fused_route(self.generator):
+            return self.generator(batch, z, generator=generator)
         if self._fast_infer_step != self.state.step:
             self._fast_infer_packed = fast_infer.prepare(self.generator, self.configuration)
             self._fast_infer_step = self.state.step

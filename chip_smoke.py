@@ -75,9 +75,22 @@ Phases, one short output line or a few each:
      epoch with their host syncs counted (torch.cuda.set_sync_debug_mode),
      seconds an epoch, ms an eval batch, checkpoint write and resume seconds,
      and the eval step's peak device memory;
-  10. the run's seconds and a {"kernels": [...]} line: each kernel at f32 and
+  10. the conv registry and the edge layout, plain PyTorch on the card (no
+     kernel of their own): (a) GATV2CONV, GCNCONV and GRAPHCONV on phase 7's
+     batch, 2 train steps at bf16 and 2 at f32 each (finite, no hourglass or
+     training-layer launch, every dropout mask's bytes from the Philox kernel,
+     step ms, real voxel nodes/s, peak device memory), an eval step, and a
+     server answering 16 requests from 4 threads (alone == batched); (b) the
+     same 512 buildings packed at the JAX default budgets (the pack count and
+     each budget's fill), the fullest pack through 2 bf16 steps for each of the
+     four convs (GATCONV also 1 at f32); (c) grid-vs-edge parity for the four
+     convs: one state_dict in both layouts, 16 buildings, f32, deterministic
+     algorithms, the same z, logits and scores on real cells within rtol 5e-3 /
+     atol 1e-3; (d) the CLI on phase 9's buildings: train --layout edges (1
+     epoch) and test, train --conv-type GCNCONV (1 epoch);
+  11. the run's seconds and a {"kernels": [...]} line: each kernel at f32 and
      at bf16 storage ("dtype"), launches from that dtype's main path;
-  11. the server stopped, every thread joined, and the result line last.
+  12. the server stopped, every thread joined, and the result line last.
 
 Every kernel is held against its plain version run in float64, the gradients
 too, by two rules: its max abs error within 4x the plain float32 version's own,
@@ -97,11 +110,14 @@ and torch.backends.cudnn.allow_tf32 both False).  Any failure is an uncaught
 exception and a non-zero exit.  Without a CUDA device it exits 1 at once.
 """
 
+import functools
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -245,17 +261,23 @@ def train_bound(B, R, chans, cmax, backward, dropout, act_bytes=4):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
+@functools.lru_cache(maxsize=None)
+def train_samples():
+    """The 512 real-scale buildings (seeds 0-511, as bench.py), processed, on the host."""
+    from building_gan_torch.config import Configuration
+    from building_gan_torch.data import generate_building_real_scale, process_building
+
+    cfg0 = Configuration()
+    return tuple(process_building(*generate_building_real_scale(i), cfg0, f"{i:06d}")
+                 for i in range(TRAIN_BUILDINGS))
+
+
 def train_batch():
     """(cfg, batch on the CPU): 512 real-scale buildings, plan_packing_slots + pack_grid_multi_from_slots."""
     from building_gan_torch.config import Configuration
-    from building_gan_torch.data import (
-        generate_building_real_scale, pack_grid_multi_from_slots, plan_packing_slots,
-        process_building,
-    )
+    from building_gan_torch.data import pack_grid_multi_from_slots, plan_packing_slots
 
-    cfg0 = Configuration()
-    samples = [process_building(*generate_building_real_scale(i), cfg0, f"{i:06d}")
-               for i in range(TRAIN_BUILDINGS)]
+    samples = list(train_samples())
     max_local = max(s[0].x.shape[0] for s in samples)
     cfg = Configuration(
         COMPUTE_DTYPE="float32", GRID_SHAPE=(11, 12, 12), GRID_SLOT_GRAPHS=TRAIN_SLOT_GRAPHS,
@@ -1240,15 +1262,15 @@ def cli_flow(common, run, tag, card):
             + ", ".join(f"{x:.3f}" for x in ts) + f" on {card}")
 
 
-def trainer_phase(dev, card):
-    """The trainer slice on the card: the CLI in subprocesses, then a Trainer in process.
+def trainer_phase(dev, card, root):
+    """The trainer slice on the card: the CLI in subprocesses, then a Trainer in process,
+    its raw and processed buildings under ``root`` (``root``/raw, ``root``/npz).
 
-    Returns {kernel: launches} of the in-process trainer path (eval step,
-    generate, one train and one validation epoch)."""
+    Returns (the CLI's flags for the processed set at the config of record, {kernel:
+    launches} of the in-process trainer path (eval step, generate, one train and one
+    validation epoch))."""
     import math
     import os
-    import shutil
-    import tempfile
 
     from building_gan_torch.checkpoint import ckpt
     from building_gan_torch.config import Configuration
@@ -1260,124 +1282,368 @@ def trainer_phase(dev, card):
     from building_gan_torch.train.trainer import Trainer
 
     t_phase = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="bgt_trainer_")
-    try:
-        raw, npz, run = (os.path.join(root, d) for d in ("raw", "npz", "run"))
-        max_local = write_raw(raw, TRAINER_BUILDINGS)
-        local_nodes = int(math.ceil(TRAINER_SLOT_GRAPHS * max_local / 64.0)) * 64
-        out, s_pre = run_cli(["preprocess", "--data-path", raw, "--save-data-path", npz], "preprocess")
-        say(f"trainer: {TRAINER_BUILDINGS} real-scale buildings written as JSON; CLI preprocess "
-            f"{s_pre:.1f} s: {out.strip().splitlines()[-1]}")
-        common = ["--save-data-path", npz, "--log-dir", run, "--device", "cuda", "--compute-dtype",
-                  "float32", "--slot-graphs", str(TRAINER_SLOT_GRAPHS), "--grid-local-nodes",
-                  str(local_nodes), "--ckpt-latest-interval", "1"]
-        cli_flow(common, run, "float32", card)
-        # the JAX package's defaults: no --compute-dtype (bf16), GP_DTYPE "compute"
-        run_b = os.path.join(root, "run_bf16")
-        default = ["--save-data-path", npz, "--log-dir", run_b, "--device", "cuda",
-                   "--slot-graphs", str(TRAINER_SLOT_GRAPHS), "--grid-local-nodes", str(local_nodes),
-                   "--ckpt-latest-interval", "1"]
-        cli_flow(default, run_b, "defaults (bfloat16)", card)
+    raw, npz, run = (os.path.join(root, d) for d in ("raw", "npz", "run"))
+    max_local = write_raw(raw, TRAINER_BUILDINGS)
+    local_nodes = int(math.ceil(TRAINER_SLOT_GRAPHS * max_local / 64.0)) * 64
+    out, s_pre = run_cli(["preprocess", "--data-path", raw, "--save-data-path", npz], "preprocess")
+    say(f"trainer: {TRAINER_BUILDINGS} real-scale buildings written as JSON; CLI preprocess "
+        f"{s_pre:.1f} s: {out.strip().splitlines()[-1]}")
+    common = ["--save-data-path", npz, "--log-dir", run, "--device", "cuda", "--compute-dtype",
+              "float32", "--slot-graphs", str(TRAINER_SLOT_GRAPHS), "--grid-local-nodes",
+              str(local_nodes), "--ckpt-latest-interval", "1"]
+    cli_flow(common, run, "float32", card)
+    # the JAX package's defaults: no --compute-dtype (bf16), GP_DTYPE "compute"
+    run_b = os.path.join(root, "run_bf16")
+    default = ["--save-data-path", npz, "--log-dir", run_b, "--device", "cuda",
+               "--slot-graphs", str(TRAINER_SLOT_GRAPHS), "--grid-local-nodes", str(local_nodes),
+               "--ckpt-latest-interval", "1"]
+    cli_flow(default, run_b, "defaults (bfloat16)", card)
 
-        # in process, on the same log dir: kernel launches, syncs, times, memory
-        cfg = Configuration(SAVE_DATA_PATH=npz, COMPUTE_DTYPE="float32", EPOCHS=3,
-                            GRID_SLOT_GRAPHS=TRAINER_SLOT_GRAPHS, GRID_LOCAL_NODES=local_nodes,
-                            GRID_BATCH=TRAINER_BATCH_IN_PROCESS)
-        torch.manual_seed(cfg.SEED)
-        trainer = Trainer(GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg),
-                          GraphDataLoaders(cfg), cfg, log_dir=run, device=dev)
-        Ld = len(trainer.discriminator.encoder.channels)
-        batch = next(iter(trainer.dataloaders.test_dataloader)).to(dev)
-        counters = {"hourglass_fwd": hg.launches, "gat_train_fwd": gt.fwd_launches,
-                    "gat_train_bwd": gt.bwd_launches, "dropout_bytes": gt.bytes_launches}
-        for c in counters.values():
-            c.reset()
-        g = torch.Generator(device=dev).manual_seed(3)
-        logits, hard, _ = trainer.generate(batch, g)
-        torch.cuda.synchronize()
-        gen_launches = (hg.launches.value, gt.fwd_launches.value)
-        g = torch.Generator(device=dev).manual_seed(3)
-        z = normal_box_muller(tuple(batch.mask.shape) + (cfg.Z_DIM,), g)
-        with torch.no_grad():
-            plain, plain_hard, _ = trainer.generator(batch, z, generator=g)
-        lerr = (logits - plain).abs().max().item()
-        real = batch.mask > 0
-        agree = (hard.argmax(-1) == plain_hard.argmax(-1))[real].float().mean().item()
-        torch.cuda.reset_peak_memory_stats(dev)
-        base = torch.cuda.memory_allocated(dev)
-        metrics = trainer.eval_step(batch, torch.Generator(device=dev).manual_seed(4))
-        torch.cuda.synchronize()
-        eval_peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
-        eval_launches = (hg.launches.value - gen_launches[0], gt.fwd_launches.value - gen_launches[1])
-        say(f"trainer: Trainer.generate on a test batch ({batch.mask.shape[0]} slots): launches "
-            f"hourglass {gen_launches[0]}, training forward {gen_launches[1]}; logits vs the plain "
-            f"generator's max abs {lerr:.3e} (tol {LOGITS_ATOL}), labels equal on {100 * agree:.3f}% "
-            "of real cells")
-        say(f"trainer: one eval step: launches hourglass {eval_launches[0]}, training forward "
-            f"{eval_launches[1]} (expect 1 and {Ld}); g_loss {metrics['g_loss'].item():.5f}, f1 "
-            f"{metrics['f1'].item():.4f}; peak device memory above the start {eval_peak:.3f} GiB")
-        if gen_launches != (1, 0) or eval_launches != (1, Ld):
-            raise AssertionError("the eval path did not launch the kernels as expected")
-        if not (np.isfinite(lerr) and lerr <= LOGITS_ATOL):
-            raise AssertionError("Trainer.generate's logits disagree with the plain generator's")
-        if not all(torch.isfinite(v).all().item() for v in metrics.values()):
-            raise AssertionError("the eval step's metrics are not finite")
-        # what an autograd-recording fused critic keeps, against the eval step's no_grad pass
-        from building_gan_torch.models import fast_train as FT
+    # in process, on the same log dir: kernel launches, syncs, times, memory
+    cfg = Configuration(SAVE_DATA_PATH=npz, COMPUTE_DTYPE="float32", EPOCHS=3,
+                        GRID_SLOT_GRAPHS=TRAINER_SLOT_GRAPHS, GRID_LOCAL_NODES=local_nodes,
+                        GRID_BATCH=TRAINER_BATCH_IN_PROCESS)
+    torch.manual_seed(cfg.SEED)
+    trainer = Trainer(GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg),
+                      GraphDataLoaders(cfg), cfg, log_dir=run, device=dev)
+    Ld = len(trainer.discriminator.encoder.channels)
+    batch = next(iter(trainer.dataloaders.test_dataloader)).to(dev)
+    counters = {"hourglass_fwd": hg.launches, "gat_train_fwd": gt.fwd_launches,
+                "gat_train_bwd": gt.bwd_launches, "dropout_bytes": gt.bytes_launches}
+    for c in counters.values():
+        c.reset()
+    g = torch.Generator(device=dev).manual_seed(3)
+    logits, hard, _ = trainer.generate(batch, g)
+    torch.cuda.synchronize()
+    gen_launches = (hg.launches.value, gt.fwd_launches.value)
+    g = torch.Generator(device=dev).manual_seed(3)
+    z = normal_box_muller(tuple(batch.mask.shape) + (cfg.Z_DIM,), g)
+    with torch.no_grad():
+        plain, plain_hard, _ = trainer.generator(batch, z, generator=g)
+    lerr = (logits - plain).abs().max().item()
+    real = batch.mask > 0
+    agree = (hard.argmax(-1) == plain_hard.argmax(-1))[real].float().mean().item()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    metrics = trainer.eval_step(batch, torch.Generator(device=dev).manual_seed(4))
+    torch.cuda.synchronize()
+    eval_peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    eval_launches = (hg.launches.value - gen_launches[0], gt.fwd_launches.value - gen_launches[1])
+    say(f"trainer: Trainer.generate on a test batch ({batch.mask.shape[0]} slots): launches "
+        f"hourglass {gen_launches[0]}, training forward {gen_launches[1]}; logits vs the plain "
+        f"generator's max abs {lerr:.3e} (tol {LOGITS_ATOL}), labels equal on {100 * agree:.3f}% "
+        "of real cells")
+    say(f"trainer: one eval step: launches hourglass {eval_launches[0]}, training forward "
+        f"{eval_launches[1]} (expect 1 and {Ld}); g_loss {metrics['g_loss'].item():.5f}, f1 "
+        f"{metrics['f1'].item():.4f}; peak device memory above the start {eval_peak:.3f} GiB")
+    if gen_launches != (1, 0) or eval_launches != (1, Ld):
+        raise AssertionError("the eval path did not launch the kernels as expected")
+    if not (np.isfinite(lerr) and lerr <= LOGITS_ATOL):
+        raise AssertionError("Trainer.generate's logits disagree with the plain generator's")
+    if not all(torch.isfinite(v).all().item() for v in metrics.values()):
+        raise AssertionError("the eval step's metrics are not finite")
+    # what an autograd-recording fused critic keeps, against the eval step's no_grad pass
+    from building_gan_torch.models import fast_train as FT
 
-        label = torch.nn.functional.one_hot(batch.type.long(), 7).float()
-        torch.cuda.reset_peak_memory_stats(dev)
-        base = torch.cuda.memory_allocated(dev)
-        with torch.enable_grad():
-            scores = FT.discriminator_apply_fused(trainer.discriminator, cfg, batch, label,
-                                                  deterministic=True)
-            kept = (torch.cuda.memory_allocated(dev) - base) / 2**30
-        del scores
-        say(f"trainer: the fused critic forward with autograd on keeps {kept:.3f} GiB for its "
-            "backward; the eval step (no_grad) keeps none of it: its peak above is one layer's")
+    label = torch.nn.functional.one_hot(batch.type.long(), 7).float()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with torch.enable_grad():
+        scores = FT.discriminator_apply_fused(trainer.discriminator, cfg, batch, label,
+                                              deterministic=True)
+        kept = (torch.cuda.memory_allocated(dev) - base) / 2**30
+    del scores
+    say(f"trainer: the fused critic forward with autograd on keeps {kept:.3f} GiB for its "
+        "backward; the eval step (no_grad) keeps none of it: its peak above is one layer's")
 
-        ms_eval = timed_ms(lambda: trainer.eval_step(batch, g), 5)
-        say(f"trainer: eval step {ms_eval:.2f} ms a batch of {batch.mask.shape[0]} slots "
-            f"(CUDA events, 5 calls) on {card}")
+    ms_eval = timed_ms(lambda: trainer.eval_step(batch, g), 5)
+    say(f"trainer: eval step {ms_eval:.2f} ms a batch of {batch.mask.shape[0]} slots "
+        f"(CUDA events, 5 calls) on {card}")
 
-        n_val = trainer.dataloaders.validation_dataloader.num_packs_per_epoch()
-        n_train = trainer.dataloaders.train_dataloader.num_packs_per_epoch()
-        t = time.perf_counter()
-        _, syncs_val, where_val = count_syncs(lambda: trainer._validate_each_epoch(3))
-        s_val = time.perf_counter() - t
-        t = time.perf_counter()
-        _, syncs_tr, where_tr = count_syncs(lambda: trainer._train_each_epoch(3))
-        s_tr = time.perf_counter() - t
-        say(f"trainer: host syncs an epoch (torch.cuda.set_sync_debug_mode): train {syncs_tr} over "
-            f"{n_train} batches {dict(where_tr.most_common(4))}, validation {syncs_val} over {n_val} "
-            f"batches {dict(where_val.most_common(4))}; seconds an epoch here (GRID_BATCH "
-            f"{TRAINER_BATCH_IN_PROCESS}): train {s_tr:.2f}, validation {s_val:.2f} on {card}")
+    n_val = trainer.dataloaders.validation_dataloader.num_packs_per_epoch()
+    n_train = trainer.dataloaders.train_dataloader.num_packs_per_epoch()
+    t = time.perf_counter()
+    _, syncs_val, where_val = count_syncs(lambda: trainer._validate_each_epoch(3))
+    s_val = time.perf_counter() - t
+    t = time.perf_counter()
+    _, syncs_tr, where_tr = count_syncs(lambda: trainer._train_each_epoch(3))
+    s_tr = time.perf_counter() - t
+    say(f"trainer: host syncs an epoch (torch.cuda.set_sync_debug_mode): train {syncs_tr} over "
+        f"{n_train} batches {dict(where_tr.most_common(4))}, validation {syncs_val} over {n_val} "
+        f"batches {dict(where_val.most_common(4))}; seconds an epoch here (GRID_BATCH "
+        f"{TRAINER_BATCH_IN_PROCESS}): train {s_tr:.2f}, validation {s_val:.2f} on {card}")
 
-        save_dir = os.path.join(root, "ckpt_timing")
-        t = time.perf_counter()
-        ckpt.save_latest(save_dir, trainer.state, {"epoch_start": 4})
-        s_save = time.perf_counter() - t
-        t = time.perf_counter()
-        ckpt.load_latest(save_dir, trainer.state, map_location=dev)
-        torch.cuda.synchronize()
-        s_load = time.perf_counter() - t
-        size = os.path.getsize(os.path.join(save_dir, ckpt.LATEST_STATE_FILE)) / 2**20
-        say(f"trainer: checkpoint write {s_save:.3f} s, resume (load onto the card) {s_load:.3f} s, "
-            f"{size:.1f} MiB")
-        launches = {k: c.value for k, c in counters.items()}
-        say(f"trainer: launches on the in-process trainer path {launches}")
-        if min(launches.values()) < 1:
-            raise AssertionError(f"a kernel of the trainer path was never launched: {launches}")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    save_dir = os.path.join(root, "ckpt_timing")
+    t = time.perf_counter()
+    ckpt.save_latest(save_dir, trainer.state, {"epoch_start": 4})
+    s_save = time.perf_counter() - t
+    t = time.perf_counter()
+    ckpt.load_latest(save_dir, trainer.state, map_location=dev)
+    torch.cuda.synchronize()
+    s_load = time.perf_counter() - t
+    size = os.path.getsize(os.path.join(save_dir, ckpt.LATEST_STATE_FILE)) / 2**20
+    say(f"trainer: checkpoint write {s_save:.3f} s, resume (load onto the card) {s_load:.3f} s, "
+        f"{size:.1f} MiB")
+    launches = {k: c.value for k, c in counters.items()}
+    say(f"trainer: launches on the in-process trainer path {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the trainer path was never launched: {launches}")
     say(f"phase: trainer {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    grid_flags = ["--save-data-path", npz, "--device", "cuda", "--slot-graphs",
+                  str(TRAINER_SLOT_GRAPHS), "--grid-local-nodes", str(local_nodes)]
+    return grid_flags, launches
 
 
-def serve(cfg, samples, seeds, dev, card):
-    """The serving main path at cfg's dtype: InferenceServer at the config of record,
-    weights from torch.manual_seed(7), REQUESTS requests from CLIENTS threads; outputs
-    checked, served alone == served in a batch, the hourglass launches counted from 0.
+# Phase 10: the conv registry (GATV2CONV, GCNCONV, GRAPHCONV) on the grid and the packed
+# edge-list layout (all four convs), at the config of record's widths.  None of these
+# paths has a fused kernel: they run the plain modules on the card.
+REGISTRY_CONVS = ("GATV2CONV", "GCNCONV", "GRAPHCONV")
+EDGE_CONVS = ("GATCONV",) + REGISTRY_CONVS
+REGISTRY_STEPS, PARITY_BUILDINGS, REGISTRY_REQUESTS, REGISTRY_CLIENTS = 2, 16, 16, 4
+PARITY_RTOL, PARITY_ATOL = 5e-3, 1e-3  # grid vs edge, the JAX package's (tests/test_grid.py)
+
+
+def layer_launches():
+    """(hourglass, training forward, training backward, dropout-byte) launch counts so far."""
+    from building_gan_torch.ops import gat_train as gt
+    from building_gan_torch.ops import hourglass as hg
+
+    return (hg.launches.value, gt.fwd_launches.value, gt.bwd_launches.value,
+            gt.bytes_launches.value)
+
+
+def plain_steps(cfg, batch, dev, steps, tag, card):
+    """``steps`` train steps of fresh plain models (weights from torch.manual_seed(cfg.SEED))
+    on ``batch``, the grid's or the edge list's by cfg.LAYOUT: each step finite, no
+    layer-kernel launch (hourglass, training forward or backward), every dropout mask's
+    bytes from the Philox kernel; -> (state, step ms, peak GiB)."""
+    from building_gan_torch.models.discriminator import VoxelGNNDiscriminator
+    from building_gan_torch.models.generator import VoxelGNNGenerator
+    from building_gan_torch.models.grid_models import GridVoxelGNNDiscriminator, GridVoxelGNNGenerator
+    from building_gan_torch.train.state import create_train_state
+    from building_gan_torch.models.fast_infer import fused_route
+    from building_gan_torch.train.step import make_train_step
+
+    G, D = ((GridVoxelGNNGenerator, GridVoxelGNNDiscriminator) if cfg.LAYOUT == "grid"
+            else (VoxelGNNGenerator, VoxelGNNDiscriminator))
+    torch.manual_seed(cfg.SEED)
+    state = create_train_state(cfg, G(cfg), D(cfg), device=dev)
+    if fused_route(state.generator) or fused_route(state.discriminator):
+        raise AssertionError(f"{tag}: a model took the fused route")
+    step = make_train_step(cfg, state)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    Lg, Ld = len(state.generator.encoder.channels), len(state.discriminator.encoder.channels)
+    # dropout layers a step: each critic update's generator, real, fake and GP passes, then
+    # the G update's generator and critic passes
+    want_bytes = cfg.N_CRITIC * (Lg + 3 * Ld) + Lg + Ld
+    n_real = int(batch.cell_mask.sum().item())
+    ms, peak = [], []
+    for i in range(steps):
+        before = layer_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        m, t = wall_ms(lambda: step(batch, gen))
+        ms.append(t)
+        peak.append(torch.cuda.max_memory_allocated(dev) / 2**30)
+        got = tuple(b - a for a, b in zip(before, layer_launches()))
+        bad = [k for k, v in m.items() if not torch.isfinite(v).all().item()]
+        say(f"{tag} step {i + 1}: {t:.1f} ms, {n_real / (t / 1e3):.1f} real voxel nodes/s, peak "
+            f"device memory {peak[-1]:.3f} GiB; g_loss {m['g_loss'].item():.5f}, d_loss "
+            f"{m['d_loss'].item():.5f}, f1 {m['f1'].item():.4f}; launches hourglass {got[0]}, "
+            f"training forward {got[1]}, backward {got[2]} (expect 0), dropout bytes {got[3]} "
+            f"(expect {want_bytes}) on {card}")
+        if bad:
+            raise AssertionError(f"{tag} step {i + 1}: non-finite {bad}")
+        if got != (0, 0, 0, want_bytes):
+            raise AssertionError(f"{tag} step {i + 1}: launches {got}")
+    return state, ms, peak
+
+
+def grid_convs(cfg_t, batch_t, dev, card):
+    """(a): each other conv of the registry on phase 7's batch (105 slots, K=6): 2 steps at
+    the JAX default bf16 and 2 at f32, one eval step, and a server answering 16 requests
+    from 4 threads; no kernel of the GATCONV path is launched."""
+    from building_gan_torch.config import Configuration
+    from building_gan_torch.data import generate_building_real_scale, process_building
+    from building_gan_torch.train.step import make_eval_step
+
+    serve_cfg = Configuration()  # the JAX defaults: bf16, grid (11, 12, 12)
+    seeds = list(range(1000, 1000 + REGISTRY_REQUESTS))
+    samples = [process_building(*generate_building_real_scale(s), serve_cfg, str(s)) for s in seeds]
+    threads = []
+    for conv in REGISTRY_CONVS:
+        cfg = cfg_t.replace(GENERATOR_CONV_TYPE=conv, DISCRIMINATOR_CONV_TYPE=conv)
+        cfg_b = cfg.replace(COMPUTE_DTYPE="bfloat16")
+        state, ms, peak = plain_steps(cfg_b, batch_t, dev, REGISTRY_STEPS, f"grid {conv} (bfloat16)",
+                                      card)
+        plain_steps(cfg, batch_t, dev, REGISTRY_STEPS, f"grid {conv} (float32)", card)
+        before = layer_launches()
+        m, t = wall_ms(lambda: make_eval_step(cfg_b, state)(
+            batch_t, torch.Generator(device=dev).manual_seed(1)))
+        got = tuple(b - a for a, b in zip(before, layer_launches()))
+        bad = [k for k, v in m.items() if not torch.isfinite(v).all().item()]
+        say(f"grid {conv} (bfloat16) eval step: {t:.1f} ms, g_loss {m['g_loss'].item():.5f}, f1 "
+            f"{m['f1'].item():.4f}; launches {got} (expect none)")
+        if bad or any(got):
+            raise AssertionError(f"grid {conv} eval step: non-finite {bad}, launches {got}")
+        del state
+        served = serve(serve_cfg.replace(GENERATOR_CONV_TYPE=conv), samples, seeds, dev, card,
+                       requests=REGISTRY_REQUESTS, clients=REGISTRY_CLIENTS)
+        threads += served["threads"] + [served["server"]._thread]
+        torch.cuda.empty_cache()
+    return threads
+
+
+def edge_layout(dev, card):
+    """(b): the 512 buildings packed at the JAX default budgets; the fullest pack through 2
+    steps at bf16 for each conv (GATCONV also 1 at f32)."""
+    from building_gan_torch.config import Configuration
+    from building_gan_torch.data.batching import pack_budgets, pack_graphs, pack_need
+
+    cfg = Configuration(LAYOUT="edges", ENCODER_DROPOUT_RATE=DROPOUT_RATE)
+    t = time.perf_counter()
+    samples = list(train_samples())
+    packs = pack_graphs(samples, cfg)
+    budgets = pack_budgets(cfg)
+    names = ("graphs", "local nodes", "local edges", "voxel nodes", "voxel edges")
+    need = np.array([pack_need(*s) for s in samples]).sum(0)
+    say(f"edges: {len(samples)} buildings in {len(packs)} packs at the JAX default budgets "
+        f"({time.perf_counter() - t:.1f} s on the host); the set needs "
+        + ", ".join(f"{n} {int(v)}" for n, v in zip(names, need)))
+    for i, p in enumerate(packs):
+        used = (int(p.graph_mask.sum()), int(p.local_mask.sum()), int(p.local_edge_mask.sum()),
+                int(p.voxel_mask.sum()), int(p.voxel_edge_mask.sum()))
+        say(f"edges: pack {i} fill " + ", ".join(
+            f"{n} {u}/{b} ({100 * u / b:.1f}%)" for n, u, b in zip(names, used, budgets)))
+    batch = max(packs, key=lambda p: float(p.voxel_mask.sum())).to(dev)
+    for conv in EDGE_CONVS:
+        c = cfg.replace(GENERATOR_CONV_TYPE=conv, DISCRIMINATOR_CONV_TYPE=conv)
+        plain_steps(c, batch, dev, REGISTRY_STEPS, f"edges {conv} (bfloat16)", card)
+        if conv == "GATCONV":
+            plain_steps(c.replace(COMPUTE_DTYPE="float32"), batch, dev, 1,
+                        f"edges {conv} (float32)", card)
+        torch.cuda.empty_cache()
+
+
+def layout_parity(dev, card):
+    """(c): for each conv, one state_dict in the grid and the edge models, the first 16
+    buildings, f32 (TF32 off), deterministic algorithms, the same z: logits and scores on
+    real cells within the JAX package's grid-vs-edge tolerance."""
+    import dataclasses
+
+    from building_gan_torch.config import Configuration
+    from building_gan_torch.data import pack_grid
+    from building_gan_torch.data.batching import pack_graphs
+    from building_gan_torch.models.discriminator import VoxelGNNDiscriminator
+    from building_gan_torch.models.generator import VoxelGNNGenerator
+    from building_gan_torch.models.grid_models import GridVoxelGNNDiscriminator, GridVoxelGNNGenerator
+
+    cfg0 = Configuration(COMPUTE_DTYPE="float32")
+    samples = list(train_samples())[:PARITY_BUILDINGS]
+    pack = pack_graphs(samples, cfg0)[0].to(dev)
+    gb = pack_grid(samples, cfg0, batch_slots=PARITY_BUILDINGS).to(dev)
+    nv = pack.voxel_x.shape[0]
+    g = torch.Generator(device=dev).manual_seed(5)
+    z_e = torch.randn(nv, cfg0.Z_DIM, generator=g, device=dev) * pack.voxel_mask[:, None]
+    label_e = torch.nn.functional.one_hot(pack.voxel_type, 7).float() * pack.voxel_mask[:, None]
+    cells, offset = [], 0
+    for b, (_, voxel) in enumerate(samples):
+        n = voxel.x.shape[0]
+        f, y, x = (torch.as_tensor(a, device=dev) for a in voxel.location.astype(np.int64).T)
+        cells.append((b, f, y, x, offset, n))
+        offset += n
+    z_g = torch.zeros(tuple(gb.mask.shape) + (cfg0.Z_DIM,), device=dev)
+    label_g = torch.zeros(tuple(gb.mask.shape) + (7,), device=dev)
+    for b, f, y, x, o, n in cells:
+        z_g[b, f, y, x] = z_e[o: o + n]
+        label_g[b, f, y, x] = label_e[o: o + n]
+
+    def on_cells(grid_out):
+        return torch.cat([grid_out[b, f, y, x] for b, f, y, x, _, _ in cells])
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for conv in EDGE_CONVS:
+            cfg = cfg0.replace(GENERATOR_CONV_TYPE=conv, DISCRIMINATOR_CONV_TYPE=conv)
+            torch.manual_seed(cfg.SEED)
+            grid = (GridVoxelGNNGenerator(cfg).to(dev), GridVoxelGNNDiscriminator(cfg).to(dev))
+            with torch.no_grad():
+                for m in grid:  # GraphNorm parameters and biases off their inits
+                    for p in m.parameters():
+                        p.add_(0.05 * torch.randn_like(p))
+            edge = (VoxelGNNGenerator(cfg).to(dev), VoxelGNNDiscriminator(cfg).to(dev))
+            for e, m in zip(edge, grid):
+                e.load_state_dict(m.state_dict())
+            with torch.no_grad():
+                logits_g = on_cells(grid[0](gb, z_g, gumbel_noise=torch.zeros_like(label_g))[0])
+                logits_e = edge[0](pack, z_e, gumbel_noise=torch.zeros(nv, 7, device=dev))[0][:offset]
+                score_g = on_cells(grid[1](gb, label_g))
+                score_e = edge[1](pack, label_e)[:offset]
+            for name, got, want in (("logits", logits_g, logits_e), ("scores", score_g, score_e)):
+                diff = (got - want).abs()
+                excess = (diff - (PARITY_ATOL + PARITY_RTOL * want.abs())).max().item()
+                say(f"parity {conv} {name}: grid vs edges max abs {diff.max().item():.3e} over "
+                    f"{offset} real cells (scale {want.abs().max().item():.3f}); tolerance rtol "
+                    f"{PARITY_RTOL} atol {PARITY_ATOL}, margin {-excess:.3e}")
+                if not (torch.isfinite(got).all().item() and excess <= 0):
+                    raise AssertionError(f"grid and edge layouts disagree: {conv} {name}")
+            del grid, edge
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def registry_cli(grid_flags, root, card):
+    """(d): the CLI on phase 9's processed buildings (``root``/npz): train --layout edges 1
+    epoch then test (the JAX default budgets), and train --conv-type GCNCONV 1 epoch on the
+    grid with phase 9's grid flags."""
+    import os
+    import re
+
+    npz = os.path.join(root, "npz")
+    for tag, flags, test in (
+        ("--layout edges", ["--save-data-path", npz, "--device", "cuda", "--layout", "edges"], True),
+        ("--conv-type GCNCONV", grid_flags + ["--conv-type", "GCNCONV"], False),
+    ):
+        run = os.path.join(root, "run_" + re.sub(r"\W+", "_", tag))
+        out, s_train = run_cli(["train", "--epochs", "1", "--log-dir", run] + flags, f"train {tag}")
+        epochs = epoch_lines(out)
+        say(f"cli {tag}: train --epochs 1 {s_train:.1f} s (process included): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in epochs.get(1, {}).items()) + f" on {card}")
+        if sorted(epochs) != [1] or not all(np.isfinite(v) for v in epochs[1].values()):
+            raise AssertionError(f"CLI train {tag}: epochs {epochs}")
+        if test:
+            out, s_test = run_cli(["test", "--log-dir", run] + flags, f"test {tag}")
+            got = {k: float(v) for k, v in re.findall(r"(\w+_test): (\S+)", out)}
+            say(f"cli {tag}: test {s_test:.1f} s: " + ", ".join(f"{k} {v:.4f}" for k, v in got.items()))
+            if set(got) != set(TEST_METRICS) or not all(np.isfinite(v) for v in got.values()):
+                raise AssertionError(f"CLI test {tag} printed {got}")
+
+
+def registry_phase(cfg_t, batch_t, grid_flags, root, dev, card):
+    """Phase 10: the conv registry and the edge layout; -> the server and client threads it
+    started (all stopped)."""
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    threads = grid_convs(cfg_t, batch_t, dev, card)
+    say(f"phase 10a: grid convs {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    edge_layout(dev, card)
+    say(f"phase 10b: edge layout {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    layout_parity(dev, card)
+    say(f"phase 10c: grid vs edge parity {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    registry_cli(grid_flags, root, card)
+    say(f"phase 10d: CLI {time.perf_counter() - t:.1f} s")
+    say(f"phase: conv registry and edge layout {time.perf_counter() - t_phase:.1f} s")
+    return threads
+
+
+def serve(cfg, samples, seeds, dev, card, requests=REQUESTS, clients=CLIENTS):
+    """The serving main path at cfg's dtype and conv: InferenceServer at the config of record,
+    weights from torch.manual_seed(7), ``requests`` requests from ``clients`` threads;
+    outputs checked, served alone == served in a batch, the hourglass launches counted
+    from 0 (at least one at GENERATOR_CONV_TYPE GATCONV, whose server must take the fused
+    route; none at any other conv, whose server must not).
     Returns the server (stopped), its client threads and the measurements."""
     from building_gan_torch.models.grid_models import GridVoxelGNNGenerator
     from building_gan_torch.ops import hourglass as hg
@@ -1386,7 +1652,12 @@ def serve(cfg, samples, seeds, dev, card):
     torch.manual_seed(7)
     weights = GridVoxelGNNGenerator(cfg).state_dict()
     server = InferenceServer(cfg, weights, max_batch=MAX_BATCH, max_delay_ms=5.0, device=dev)
-    tag = cfg.COMPUTE_DTYPE
+    fused = cfg.GENERATOR_CONV_TYPE == "GATCONV"
+    if fused != (server._weights[1] is not None):
+        raise AssertionError(f"the {cfg.GENERATOR_CONV_TYPE} server took the "
+                             f"{'plain' if fused else 'fused'} route")
+    tag = cfg.COMPUTE_DTYPE if cfg.GENERATOR_CONV_TYPE == "GATCONV" else (
+        f"{cfg.COMPUTE_DTYPE}, {cfg.GENERATOR_CONV_TYPE}")
     hg.launches.reset()
     server.start()
     try:
@@ -1408,8 +1679,8 @@ def serve(cfg, samples, seeds, dev, card):
                     errors.append(e)
 
         threads = [
-            threading.Thread(target=client, args=(range(c, REQUESTS, CLIENTS),))
-            for c in range(CLIENTS)
+            threading.Thread(target=client, args=(range(c, requests, clients),))
+            for c in range(clients)
         ]
         t_all = time.perf_counter()
         for th in threads:
@@ -1421,8 +1692,8 @@ def serve(cfg, samples, seeds, dev, card):
             raise TimeoutError("a client thread did not finish")
         if errors:
             raise errors[0]
-        if len(results) != REQUESTS:
-            raise AssertionError(f"{len(results)} of {REQUESTS} requests answered")
+        if len(results) != requests:
+            raise AssertionError(f"{len(results)} of {requests} requests answered")
         batch_sizes = list(server.batch_sizes)
         for i, r in results.items():
             n = samples[i][1].x.shape[0]
@@ -1433,7 +1704,7 @@ def serve(cfg, samples, seeds, dev, card):
             if not ((r["types"] >= 0) & (r["types"] < 7)).all():
                 raise AssertionError(f"request {i}: types outside [0, 7)")
         alone_diff = 0.0
-        for i in (0, 1, REQUESTS - 1):
+        for i in (0, 1, requests - 1):
             alone = server.infer(*samples[i], seed=seeds[i], timeout_s=REQUEST_TIMEOUT_S)
             if not np.array_equal(alone["types"], results[i]["types"]):
                 raise AssertionError(f"request {i}: types served alone differ from batched")
@@ -1441,17 +1712,19 @@ def serve(cfg, samples, seeds, dev, card):
         launches = hg.launches.value
     finally:
         server.stop()
-    if launches < 1:
+    if fused and launches < 1:
         raise AssertionError(f"the served path ({tag}) never launched the hourglass kernel")
+    if not fused and launches:
+        raise AssertionError(f"the plain served path ({tag}) launched the hourglass kernel")
     lat = np.sort(np.array(latency)) * 1e3
     out = {"server": server, "threads": threads, "launches": launches,
            "p50": float(np.percentile(lat, 50)), "p99": float(np.percentile(lat, 99)),
-           "bps": REQUESTS / wall, "results": results}
-    say(f"serve ({tag}): {REQUESTS} requests, {CLIENTS} clients, batches {batch_sizes}")
+           "bps": requests / wall, "results": results}
+    say(f"serve ({tag}): {requests} requests, {clients} clients, batches {batch_sizes}")
     say(f"serve ({tag}): latency p50 {out['p50']:.1f} ms p99 {out['p99']:.1f} ms, "
         f"{out['bps']:.1f} buildings/s on {card}")
     say(f"serve ({tag}): alone == batched types; logits max diff {alone_diff:.1e}; "
-        f"kernel launches {launches} (one per batch)")
+        f"kernel launches {launches} ({'one per batch' if fused else 'the plain generator'})")
     return out
 
 
@@ -1830,10 +2103,18 @@ def main() -> int:
     del state, state_b
     torch.cuda.empty_cache()
 
-    # 9. the trainer slice: CLI subprocesses on the card, then a Trainer in process
-    trainer_phase(dev, card)
+    # 9. the trainer slice: CLI subprocesses on the card, then a Trainer in process; its
+    # processed buildings stay for phase 10's CLI runs
+    root = tempfile.mkdtemp(prefix="bgt_trainer_")
+    try:
+        grid_flags, _ = trainer_phase(dev, card, root)
 
-    # 10. kernels line: the training kernels' times are one generator stack
+        # 10. the conv registry and the edge layout: plain modules on the card
+        threads += registry_phase(cfg_t, batch_t, grid_flags, root, dev, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # 11. kernels line: the training kernels' times are one generator stack
     # (14 layer launches) at the step's shapes; each kernel at f32 and at bf16 storage,
     # launches from that dtype's main path (the server's, 3 train steps)
     kernels = []
@@ -1867,7 +2148,7 @@ def main() -> int:
     say(f"total: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
 
-    # 11. result line, last
+    # 12. result line, last
     if any(srv._thread.is_alive() for srv in servers) or any(th.is_alive() for th in threads):
         raise AssertionError("a server or client thread is still running")
     say(json.dumps({"ok": True, "device": {

@@ -7,8 +7,9 @@
   (and K = 3 stacked two packs a group): the same split indices, and over
   two epochs the same packs in the same order, every array equal.
 - ``grid_compatible``, ``stack_grid_batches`` and ``null_like`` against JAX.
-- ``prefetch`` hands a producer's exception to the consumer; the edge-list
-  layout and grid buckets raise.
+- ``GraphDataLoaders`` at ``LAYOUT="edges"``: ``PackedBatch``es equal to
+  the JAX package's packs, in the same order, unstacked and two a group.
+- ``prefetch`` hands a producer's exception to the consumer; grid buckets raise.
 
 Everything here is integer bookkeeping or a copy of float32 arrays, so every
 comparison is exact (tolerance 0).
@@ -32,6 +33,7 @@ from building_gan_torch.data import grid as tgrid
 from building_gan_torch.data import pipeline as tpipe
 from building_gan_torch.data import preprocess as tpre
 from building_gan_torch.data import synthetic as tsyn
+from building_gan_torch.data.batching import PackedBatch
 from building_gan_torch.data.grid import GridBatch
 
 from test_torch_layers import port_batch, port_cfg
@@ -173,14 +175,42 @@ def test_prefetch_hands_on_the_producers_error():
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"LAYOUT": "edges"}, "Queue A item 9"),
-    ({"GRID_BUCKETS": ((6, 6, 6), (10, 8, 8))}, "GRID_BUCKETS"),
+    pytest.param({"GRID_BUCKETS": ((6, 6, 6), (10, 8, 8))}, "GRID_BUCKETS",
+                 id="override1-GRID_BUCKETS"),
 ])
 def test_loaders_refuse_what_the_port_lacks(override, match, dataset):
     _, npz = dataset
     _, tcfg = _loader_cfgs(npz, 1)
     with pytest.raises(NotImplementedError, match=match):
         tpipe.GraphDataLoaders(tcfg.replace(**override))
+
+
+@pytest.mark.parametrize("groups", [None, 2], ids=["packs", "stacked2"])
+def test_edge_loaders_match_jax(groups, dataset):
+    """LAYOUT="edges": the loaders yield PackedBatches, the JAX package's packs bit for bit
+    in the same order over two epochs (packs of at most 3 buildings)."""
+    _, npz = dataset
+    jcfg = JConfiguration(SAVE_DATA_PATH=npz, SEED=11, LAYOUT="edges", PACK_GRAPHS=3,
+                          PACK_LOCAL_NODES=256, PACK_LOCAL_EDGES=2048, PACK_VOXEL_NODES=2048,
+                          PACK_VOXEL_EDGES=16384)
+    jl = jpipe.GraphDataLoaders(jcfg, n_device_batches=groups)
+    tl = tpipe.GraphDataLoaders(port_cfg(jcfg), n_device_batches=groups)
+    assert np.array_equal(jl.test_indices, tl.test_indices)
+    n_batches = 0
+    for epoch in range(2):
+        for split in ("train", "validation", "test"):
+            jb = list(getattr(jl, f"{split}_dataloader"))
+            tb = list(getattr(tl, f"{split}_dataloader"))
+            assert len(jb) == len(tb) > 0, (epoch, split)
+            for a, b in zip(jb, tb):
+                assert isinstance(b, PackedBatch)
+                for f in dataclasses.fields(PackedBatch):
+                    j, tt = np.asarray(getattr(a, f.name)), getattr(b, f.name)
+                    assert j.shape == tuple(tt.shape) and np.array_equal(j, tt.numpy()), f.name
+                    assert tt.device.type == "cpu"
+            n_batches += len(tb)
+    assert tl.train_dataloader.num_packs_per_epoch() == jl.train_dataloader.num_packs_per_epoch()
+    assert n_batches >= 6
 
 
 def test_loader_yields_cpu_tensors(dataset):

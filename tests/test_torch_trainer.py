@@ -13,8 +13,9 @@
   resumes from the latest checkpoint and runs epoch 3 only; the reference's
   14 tags for every epoch in the JSON-lines log (tensorboardX hidden), the
   step count continued, and ``test()`` finite.
-- The CLI's synth -> preprocess -> train -> test in process on the CPU, and
-  the flags it refuses.
+- The CLI's synth -> preprocess -> train -> test in process on the CPU, the
+  same at ``--layout edges`` and at each other ``--conv-type``, and the flags
+  it refuses.
 """
 
 import sys
@@ -342,14 +343,43 @@ def test_cli_synth_preprocess_train_test(tiny_cli, tmp_path, capsys):
         tiny_cli.main(["test", "--num-samples-to-viz", "2"] + common)
 
 
+@pytest.fixture(scope="module")
+def cli_data(tmp_path_factory):
+    """16 synthetic buildings, processed."""
+    root = tmp_path_factory.mktemp("cli_data")
+    raw, npz = str(root / "raw"), str(root / "npz")
+    cli.main(["synth", "--data-path", raw, "--num", "16", "--seed", "2"])
+    cli.main(["preprocess", "--data-path", raw, "--save-data-path", npz])
+    return npz
+
+
+@pytest.mark.parametrize("flags", [
+    ["--layout", "edges", "--pack-graphs", "4", "--pack-voxel-nodes", "2048",
+     "--pack-voxel-edges", "16384", "--pack-local-nodes", "256", "--pack-local-edges", "2048"],
+    ["--conv-type", "GCNCONV"],
+    ["--conv-type", "GRAPHCONV"],
+    ["--conv-type", "GATV2CONV"],
+], ids=lambda v: v[1])
+def test_cli_trains_and_tests_edges_and_other_convs(flags, cli_data, tiny_cli, tmp_path, capsys):
+    """The packed edge-list layout and the other convs of the registry: one epoch, then test,
+    on the CPU, at the default compute dtype (bf16)."""
+    run = str(tmp_path / "run")
+    common = ["--save-data-path", cli_data, "--log-dir", run, "--device", "cpu"] + flags
+    tiny_cli.main(["train", "--epochs", "1"] + common)
+    out = capsys.readouterr().out
+    assert "epoch 1:" in out and ckpt.exists(run)
+    tiny_cli.main(["test"] + common)
+    out = capsys.readouterr().out
+    values = [float(ln.split(":")[1]) for ln in out.splitlines() if "_test:" in ln]
+    assert len(values) == 5 and all(np.isfinite(v) for v in values)
+
+
 @pytest.mark.parametrize("flags,match", [
-    (["--layout", "edges"], "Queue A item 9"),
     (["--generator-arch", "transformer"], "Queue A item 9"),
     (["--mesh-data", "2"], "Queue A item 6"),
     (["--batch-level-matching"], "Queue A item 9"),
     (["--batch-level-graphnorm"], "Queue A item 9"),
     (["--grid-buckets", "6x6x6,10x8x8"], "Queue A item 9"),
-    (["--conv-type", "GCNCONV"], "Queue A item 9"),
 ], ids=lambda v: v if isinstance(v, str) else v[0])
 def test_cli_refuses_what_the_port_lacks(flags, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
