@@ -1,7 +1,8 @@
 """Weight carry-over: flax generator and critic params -> the port's ``state_dict``.
 
 Port of ``building_gan_tpu/checkpoint/torch_compat.py::generator_params_to_torch``
-and ``discriminator_params_to_torch``.
+and ``discriminator_params_to_torch``; ``transformer_params_to_state_dict``
+carries the transformer generator's params over to the port's own names.
 The input is the flax parameter tree as a nested dict of numpy arrays (so this
 module needs no JAX); the output keys follow the reference torch layout, which
 is how the port's ``GridVoxelGNNGenerator`` names its submodules:
@@ -147,4 +148,27 @@ def discriminator_params_to_state_dict(params: dict, cfg) -> Dict[str, torch.Ten
             _dense(out, f"decoder.{2 * int(name.split('_')[-1])}", path, v)
         else:
             raise KeyError(f"unmapped discriminator param {path}")
+    return _tensors(out)
+
+
+_MLP_BLOCK_PARTS = {"dense": "0", "norm": "1"}  # the port's MLPBlock: Linear at 0, LayerNorm at 1
+
+
+def transformer_params_to_state_dict(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """Flax ``GridTransformerGenerator`` params -> the port's ``GridTransformerGenerator``
+    state_dict.
+
+    The reference has no transformer, so the keys are the port's own module
+    names, which follow the flax paths: ``block_i/attn/qkv/kernel`` ->
+    ``block_i.attn.qkv.weight`` (T), LayerNorm ``scale`` -> ``weight``, and an
+    MLP block's ``dense`` / ``norm`` (``matched_enc_i``, ``mlp_enc_i``,
+    ``dec_i``) -> its ``0`` / ``1``.
+    """
+    out: Dict[str, np.ndarray] = {}
+    for path, v in _flatten(params).items():
+        mods, leaf = list(path[:-1]), path[-1]
+        if mods[0].startswith(("matched_enc_", "mlp_enc_", "dec_")) and mods[0] != "dec_out":
+            mods[1] = _MLP_BLOCK_PARTS[mods[1]]
+        name = "weight" if leaf in ("kernel", "scale") else leaf
+        out[".".join(mods + [name])] = v.T if leaf == "kernel" else v
     return _tensors(out)

@@ -15,11 +15,17 @@ trainer runs on the card unless asked for the CPU.
 ``--pack-*`` budgets), ``--conv-type`` picks the generator's and the
 critic's conv (GATCONV, the default, is the one with fused CUDA kernels on
 the grid; GCNCONV, GRAPHCONV and GATV2CONV run as plain PyTorch).
+``--generator-arch transformer`` trains the grid transformer generator
+against the grid critic (on the grid layout, as in the JAX package; the edge
+layout keeps the hourglass generator), ``--batch-level-matching`` and
+``--batch-level-graphnorm`` turn on the reference's merged-batch quirks Q1
+and Q5, and ``--grid-buckets 6x6x6,8x8x8,11x12x12`` packs each building at
+its smallest fitting grid shape.
 ``COMPUTE_DTYPE`` defaults to bfloat16 (f32 parameters, bf16 activations), as
 in the JAX package; ``--compute-dtype float32`` computes in f32.  A checkpoint
-holds f32 parameters at either dtype.  Flags for what the port does not have yet raise
-and name the ROADMAP item that ports it; ``ingest``, ``analyze``, ``viz`` and
-``sanity`` wait for Queue A item 8.  ``--use-pallas``, ``--device-resident``
+holds f32 parameters at either dtype.  ``--mesh-data`` above 1 (data
+parallelism) is not ported yet and raises, naming ROADMAP Queue A item 6;
+``ingest``, ``analyze``, ``viz`` and ``sanity`` wait for Queue A item 8.  ``--use-pallas``, ``--device-resident``
 and ``--pack-gemms`` schedule TPU work in the JAX package; here they are
 accepted and change nothing.
 """
@@ -55,7 +61,7 @@ def _add_config_overrides(p: argparse.ArgumentParser) -> None:
     p.add_argument("--slot-graphs", type=int, default=None, help="buildings bin-packed per grid slot (GRID_SLOT_GRAPHS)")
     p.add_argument("--grid-local-nodes", type=int, default=None, help="packed local-node width per slot (GRID_LOCAL_NODES)")
     p.add_argument("--grid-buckets", default=None,
-                   help="comma-separated FxYxX shapes (GRID_BUCKETS; not ported)")
+                   help="comma-separated FxYxX shapes (GRID_BUCKETS)")
     p.add_argument("--device-resident", action="store_true",
                    help="DEVICE_RESIDENT_DATA (no effect in the port)")
     p.add_argument("--device-resident-compositions", type=int, default=None,
@@ -72,17 +78,9 @@ def _add_config_overrides(p: argparse.ArgumentParser) -> None:
 
 def _not_ported(cfg) -> None:
     """Raise on a configuration the port cannot run yet, naming the ROADMAP item."""
-    if cfg.GENERATOR_ARCH != "hourglass":
-        raise NotImplementedError("--generator-arch transformer is not ported yet "
-                                  "(ROADMAP Queue A item 9)")
     if cfg.MESH_DATA > 1:
         raise NotImplementedError("--mesh-data > 1: data parallelism is not ported yet "
                                   "(ROADMAP Queue A item 6)")
-    if cfg.BATCH_LEVEL_MATCHING or cfg.BATCH_LEVEL_GRAPHNORM:
-        raise NotImplementedError("the batch-level quirk modes are not ported yet "
-                                  "(ROADMAP Queue A item 9)")
-    if cfg.GRID_BUCKETS:
-        raise NotImplementedError("--grid-buckets is not ported yet (ROADMAP Queue A item 9)")
 
 
 def _build_config(args):
@@ -160,6 +158,7 @@ def _make_trainer(args):
     from ..models.discriminator import VoxelGNNDiscriminator
     from ..models.generator import VoxelGNNGenerator
     from ..models.grid_models import GridVoxelGNNDiscriminator, GridVoxelGNNGenerator
+    from ..models.transformer import GridTransformerGenerator
     from ..train.trainer import Trainer
 
     cfg = _build_config(args)
@@ -168,7 +167,8 @@ def _make_trainer(args):
     loaders = GraphDataLoaders(cfg)
     torch.manual_seed(cfg.SEED)  # the models' initial weights
     if cfg.LAYOUT == "grid":
-        gen, disc = GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg)
+        G = GridTransformerGenerator if cfg.GENERATOR_ARCH == "transformer" else GridVoxelGNNGenerator
+        gen, disc = G(cfg), GridVoxelGNNDiscriminator(cfg)
     else:  # the packed edge-list layout
         gen, disc = VoxelGNNGenerator(cfg), VoxelGNNDiscriminator(cfg)
     return Trainer(gen, disc, loaders, cfg, log_dir=args.log_dir, device=args.device)

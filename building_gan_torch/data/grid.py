@@ -217,14 +217,20 @@ class _Slot:
         self.local_used = 0  # program-graph nodes consumed in this slot
 
     def try_place_cells(self, pat: np.ndarray) -> Tuple[int, int, int] | None:
-        """First anchor where the building's actual cells hit no occupied cell."""
+        """First anchor where the building's actual cells hit no occupied cell.
+
+        The conflicts are counted in int32.  The JAX package counts them in uint8
+        (``building_gan_tpu/data/grid.py:193``), where 256 conflicting cells wrap
+        to 0 and a building is placed over another one; real-scale buildings
+        (up to 1584 cells) reach that.
+        """
         F, Y, X = self.shape
         pf, py, px = pat.shape
         if pf > F or py > Y or px > X:
             return None
         win = np.lib.stride_tricks.sliding_window_view(self.occ, pat.shape)
         conflicts = np.einsum(
-            "abcijk,ijk->abc", win.astype(np.uint8), pat.astype(np.uint8), optimize=True
+            "abcijk,ijk->abc", win.astype(np.int32), pat.astype(np.int32), optimize=True
         )
         anchors = np.argwhere(conflicts == 0)
         if anchors.size == 0:

@@ -14,9 +14,12 @@ packed edge-list layout's ``PackedBatch``es (``data/batching.py``, at the
 Either holds CPU tensors; the consumer moves them to its device (``.to``).
 ``prefetch`` packs on a host thread and makes no CUDA call there.
 
-Not ported: ``GRID_BUCKETS`` raises (ROADMAP Queue A item 9).
-``DEVICE_RESIDENT_DATA`` only schedules TPU transfers in the JAX package and
-is accepted and ignored.
+With ``GRID_BUCKETS`` each building goes to the smallest bucket shape
+that holds its extent, and each bucket's group is packed into slots of its
+own shape (composing with ``GRID_SLOT_GRAPHS`` > 1), so an epoch's grid
+batches come in several shapes, smallest bucket first, as in the JAX
+package.  ``DEVICE_RESIDENT_DATA`` only schedules TPU transfers in the JAX
+package and is accepted and ignored.
 """
 
 from __future__ import annotations
@@ -34,12 +37,6 @@ from ..config import Configuration
 from . import batching
 from . import grid as gridlib
 from .preprocess import LocalGraph, VoxelGraph, load_local, load_voxel
-
-
-def _require_ported_layout(cfg: Configuration) -> None:
-    """Raise on the batch layouts the port does not have."""
-    if cfg.GRID_BUCKETS:
-        raise NotImplementedError("GRID_BUCKETS is not ported yet (ROADMAP Queue A item 9)")
 
 
 class GraphDataset:
@@ -91,6 +88,23 @@ def null_like(pack):
     return dataclasses.replace(pack, **fields)
 
 
+def _same_shapes(a, b) -> bool:
+    """Whether two packs of one kind have the same shape in every field."""
+    return all((x is None) == (y is None) and (x is None or x.shape == y.shape)
+               for x, y in zip(vars(a).values(), vars(b).values()))
+
+
+def _pack_group(samples, cfg: Configuration) -> list:
+    """``GridBatch``es of ``GRID_BATCH`` slots at ``cfg.GRID_SHAPE``: one building a slot,
+    or several by the 3D first-fit packer with ``GRID_SLOT_GRAPHS`` > 1."""
+    B = cfg.GRID_BATCH
+    if cfg.GRID_SLOT_GRAPHS > 1:
+        slots = gridlib.plan_packing_slots(samples, cfg)
+        return [gridlib.pack_grid_multi_from_slots(samples, slots[i: i + B], cfg, batch_slots=B)
+                for i in range(0, len(slots), B)]
+    return [gridlib.pack_grid(samples[i: i + B], cfg) for i in range(0, len(samples), B)]
+
+
 def prefetch(iterable, size: int = 2):
     """Run ``iterable`` on a background thread, ``size`` items ahead: host packing
     overlaps the device's work (the reference used ``DataLoader(num_workers=3)``).
@@ -129,7 +143,9 @@ class PackedLoader:
 
     Each ``__iter__`` re-shuffles (a torch DataLoader with ``shuffle=True``).
     With ``GRID_SLOT_GRAPHS`` > 1 the 3D first-fit packer places several
-    buildings a grid slot.  With ``n_device_batches`` set, batches are grouped,
+    buildings a grid slot.  With ``GRID_BUCKETS`` the buildings are routed to
+    their smallest fitting bucket and each bucket packs at its own grid shape.
+    With ``n_device_batches`` set, consecutive packs of one shape are grouped,
     completed with ``null_like`` packs, and stacked on a leading device axis.
     """
 
@@ -141,15 +157,17 @@ class PackedLoader:
         seed: int = 0,
         n_device_batches: Optional[int] = None,
     ):
-        _require_ported_layout(cfg)
         self.samples = list(samples)
         self.cfg = cfg
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
         self.n_device_batches = n_device_batches
         if cfg.LAYOUT == "grid":
+            max_shape = cfg.GRID_SHAPE
+            if cfg.GRID_BUCKETS:
+                max_shape = max(cfg.GRID_BUCKETS, key=lambda s: s[0] * s[1] * s[2])
             bad = [v.data_number for _, v in self.samples
-                   if not gridlib.grid_compatible(v, cfg.GRID_SHAPE)]
+                   if not gridlib.grid_compatible(v, max_shape)]
             if bad:
                 raise ValueError(
                     f"{len(bad)} buildings are not grid-compatible (e.g. {bad[:3]}); "
@@ -157,14 +175,23 @@ class PackedLoader:
                 )
 
     def _make_batches(self, samples) -> list:
-        cfg, B = self.cfg, self.cfg.GRID_BATCH
+        cfg = self.cfg
         if cfg.LAYOUT != "grid":
             return batching.pack_graphs(samples, cfg)
-        if cfg.GRID_SLOT_GRAPHS > 1:
-            slots = gridlib.plan_packing_slots(samples, cfg)
-            return [gridlib.pack_grid_multi_from_slots(samples, slots[i: i + B], cfg, batch_slots=B)
-                    for i in range(0, len(slots), B)]
-        return [gridlib.pack_grid(samples[i: i + B], cfg) for i in range(0, len(samples), B)]
+        if not cfg.GRID_BUCKETS:
+            return _pack_group(samples, cfg)
+        ordered = sorted(dict.fromkeys(tuple(b) for b in cfg.GRID_BUCKETS),
+                         key=lambda s: s[0] * s[1] * s[2])
+        groups = {shape: [] for shape in ordered}
+        for s in samples:
+            extent = s[1].location.max(axis=0) + 1
+            shape = next((b for b in ordered if all(int(e) <= d for e, d in zip(extent, b))), None)
+            if shape is None:
+                raise ValueError(f"building {s[1].data_number} (extent {extent}) fits no "
+                                 f"bucket in {cfg.GRID_BUCKETS}")
+            groups[shape].append(s)
+        return [pack for shape in ordered if groups[shape]
+                for pack in _pack_group(groups[shape], cfg.replace(GRID_SHAPE=shape))]
 
     def __iter__(self):
         order = np.arange(len(self.samples))
@@ -174,11 +201,16 @@ class PackedLoader:
         if self.n_device_batches is None:
             yield from packs
             return
-        # every pack of a loader has one shape (no buckets), so groups are consecutive packs
+        # a group takes consecutive packs of one shape (buckets mix grid shapes)
         d = self.n_device_batches
         stack = gridlib.stack_grid_batches if self.cfg.LAYOUT == "grid" else batching.stack_packs
-        for i in range(0, len(packs), d):
-            group = packs[i: i + d]
+        i = 0
+        while i < len(packs):
+            group = [packs[i]]
+            i += 1
+            while len(group) < d and i < len(packs) and _same_shapes(packs[i], group[0]):
+                group.append(packs[i])
+                i += 1
             group += [null_like(group[0]) for _ in range(d - len(group))]
             yield stack(group)
 

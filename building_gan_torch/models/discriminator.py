@@ -5,8 +5,8 @@ the grid critic's computation (``models/grid_models.py``) over a
 ``PackedBatch``: type-matched pooling, the [matched, voxel features, label]
 input through the ReLU MLP, the hourglass over the voxel graph's edge list
 (its conv by ``DISCRIMINATOR_CONV_TYPE``), and per-node scores (no graph
-readout, quirk Q10).  Submodules carry the grid critic's names.  Only the
-WGAN critic is ported (``USE_WGANGP=True``), as on the grid.
+readout, quirk Q10), through a sigmoid with ``USE_WGANGP=False``.
+Submodules carry the grid critic's names.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ class VoxelGNNDiscriminator(GridVoxelGNNDiscriminator):
         matched_x = type_matched_pooling(
             batch.local_x, batch.local_type, batch.local_graph_id, batch.local_mask,
             batch.voxel_type, batch.voxel_graph_id, num_graphs,
+            batch_level=self.configuration.BATCH_LEVEL_MATCHING,
         )
         x = self.mlp_encoder(torch.cat([matched_x.to(dt), batch.voxel_x.to(dt), label.to(dt)],
                                        dim=-1))
@@ -41,4 +42,4 @@ class VoxelGNNDiscriminator(GridVoxelGNNDiscriminator):
             x, batch.voxel_src, batch.voxel_dst, batch.voxel_edge_mask, batch.voxel_graph_id,
             num_graphs + 1, batch.voxel_mask, deterministic=deterministic, keys=keys,
         )
-        return self.decoder(encoded.to(dt)).float()
+        return self.score(encoded.to(dt))

@@ -17,9 +17,15 @@ from .grid_layers import GridHourglass
 
 
 def fused_route(model) -> bool:
-    """Whether ``model`` runs its hourglass fused: a grid model whose conv (from the
-    configuration that built it) is GATCONV, the one conv with kernels."""
-    return isinstance(model.encoder, GridHourglass) and model.encoder.conv_type == "GATCONV"
+    """Whether ``model`` runs its hourglass fused: a grid model whose hourglass (from the
+    configuration that built it) is GATCONV, the one conv with kernels, with statistics
+    per building.  A model without a ``GridHourglass`` (the edge models, the transformer
+    generator) runs plain; so does ``BATCH_LEVEL_GRAPHNORM``, whose statistics span the
+    batch while the kernels keep them per slot or per gid key (the JAX fused train path
+    has no branch for the flag; the port follows the flax modules, which honour it)."""
+    enc = getattr(model, "encoder", None)
+    return (isinstance(enc, GridHourglass) and enc.conv_type == "GATCONV"
+            and not enc.batch_level_graphnorm)
 
 
 def prepare(model, cfg) -> dict:

@@ -40,6 +40,7 @@ class VoxelGNNGenerator(GridVoxelGNNGenerator):
         matched_x = type_matched_pooling(
             batch.local_x, batch.local_type, batch.local_graph_id, batch.local_mask,
             batch.voxel_type, batch.voxel_graph_id, num_graphs,
+            batch_level=self.configuration.BATCH_LEVEL_MATCHING,
         )
         encoded_matched = self.matched_features_encoder(matched_x.to(dt))
         voxel_x, z = batch.voxel_x.to(dt), z.to(dt)

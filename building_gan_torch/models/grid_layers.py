@@ -36,8 +36,10 @@ def graph_norm(
     eps: float = 1e-5,
     gid: torch.Tensor | None = None,  # (B, R) building index within the slot
     num_graphs: int = 1,
+    batch_level: bool = False,
 ) -> torch.Tensor:
-    """GraphNorm with learned mean scale, statistics per slot or per (slot, gid).
+    """GraphNorm with learned mean scale, statistics per slot or per (slot, gid), or
+    (``batch_level``, the reference's quirk Q5) over every masked cell of the batch.
 
     One-pass moments, as the JAX package computes them:
     ``s = E[x] * mean_scale``, ``var = E[x^2] - 2 s E[x] + s^2``,
@@ -54,7 +56,7 @@ def graph_norm(
     """
     dt = torch.promote_types(x.dtype, torch.float32)
     m = mask.to(dt)[..., None]
-    if gid is not None and num_graphs > 1:
+    if gid is not None and num_graphs > 1 and not batch_level:
         oh = F.one_hot(gid.long().clamp(min=0), num_graphs).to(dt)
         oh = oh * ((gid >= 0) & (gid < num_graphs)).to(dt)[..., None] * m  # (B, R, K)
         counts = oh.sum(dim=1).clamp(min=1.0)  # (B, K)
@@ -72,9 +74,10 @@ def graph_norm(
         C = inv.shape[-1]
         return x * t[..., :C] + t[..., C:]
     xf = x.to(dt)
-    denom = mask.to(dt).sum(dim=1).clamp(min=1.0)[:, None, None]
-    mean = (xf * m).sum(dim=1, keepdim=True) / denom
-    ex2 = (xf * xf * m).sum(dim=1, keepdim=True) / denom
+    axes = (0, 1) if batch_level else (1,)  # the batch's cells, or each slot's
+    denom = mask.to(dt).sum(dim=axes, keepdim=True)[..., None].clamp(min=1.0)
+    mean = (xf * m).sum(dim=axes, keepdim=True) / denom
+    ex2 = (xf * xf * m).sum(dim=axes, keepdim=True) / denom
     s = mean * mean_scale
     var = torch.clamp(ex2 - 2.0 * s * mean + s * s, min=0.0)
     inv = weight * torch.rsqrt(var + eps)
@@ -91,9 +94,10 @@ class GridGraphNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.mean_scale = nn.Parameter(torch.ones(features))
 
-    def forward(self, x, mask, gid=None, num_graphs: int = 1):
+    def forward(self, x, mask, gid=None, num_graphs: int = 1, batch_level: bool = False):
         return graph_norm(
-            x, mask, self.weight, self.bias, self.mean_scale, self.eps, gid, num_graphs
+            x, mask, self.weight, self.bias, self.mean_scale, self.eps, gid, num_graphs,
+            batch_level,
         )
 
 
@@ -204,15 +208,19 @@ class GridHourglass(nn.Module):
     Philox byte-threshold mask of ``ops/dropout.py`` under that layer's key
     ``keys[i]``, counted over the stack's padded width ``hidden_dim``: the
     same mask the fused kernels draw from the same keys.  Only a GATCONV
-    stack has fused kernels (``models/fast_train.py``, ``models/fast_infer.py``);
-    the other convs run this module.
+    stack with per-building statistics has fused kernels
+    (``models/fast_train.py``, ``models/fast_infer.py``); the other convs, and
+    ``batch_level_graphnorm`` (quirk Q5: every norm's statistics over the whole
+    batch), run this module.
     """
 
     def __init__(self, hidden_dim: int, repeat: int, min_channels: int = 1,
-                 conv_type: str = "GATCONV", dropout_rate: float = 0.2):
+                 conv_type: str = "GATCONV", dropout_rate: float = 0.2,
+                 batch_level_graphnorm: bool = False):
         super().__init__()
         conv_cls = conv_class(GRID_CONV_REGISTRY, conv_type)
         self.conv_type = conv_type
+        self.batch_level_graphnorm = batch_level_graphnorm
         self.hidden_dim = hidden_dim
         self.dropout_rate = dropout_rate
         self.channels = hourglass_channels(hidden_dim, repeat, min_channels)
@@ -239,7 +247,8 @@ class GridHourglass(nn.Module):
             raise ValueError("training-mode dropout needs per-layer Philox keys")
         for i, (conv, norm) in enumerate(self.layers()):
             x = conv(x, mask, grid_shape, gid=gid)
-            x = torch.relu(norm(x, mask, gid=gid, num_graphs=num_graphs))
+            x = torch.relu(norm(x, mask, gid=gid, num_graphs=num_graphs,
+                                batch_level=self.batch_level_graphnorm))
             if drop_on:
                 x = dropout.dropout(x, keys[i], self.dropout_rate, width=self.hidden_dim)
         return x
@@ -254,13 +263,16 @@ def grid_type_matched_pooling(
     local_gid: torch.Tensor | None = None,  # (B, NL)
     gid: torch.Tensor | None = None,  # like voxel_type
     num_graphs: int = 1,
+    batch_level: bool = False,
 ) -> torch.Tensor:
     """Per-cell mean of the program nodes of the cell's type (and building).
 
     A per-(graph, type) mean table built with one einsum, read back with a
     one-hot matmul.  Multi-building slots key the table on (building, type).
-    Sums in float32, the table rounded to ``local_x``'s dtype (the caller
-    casts it to the compute dtype), as the JAX function does.
+    ``batch_level`` (the reference's quirk Q1) keys it on the type alone, over
+    every slot of the batch (the gid planes are then not read, as in the JAX
+    function).  Sums in float32, the table rounded to ``local_x``'s dtype (the
+    caller casts it to the compute dtype), as the JAX function does.
     """
     B = voxel_type.shape[0]
     cells = tuple(voxel_type.shape[1:])
@@ -268,7 +280,7 @@ def grid_type_matched_pooling(
     lx = local_x.float()
     lm = local_mask.float()[..., None]
 
-    if gid is not None and num_graphs > 1:
+    if gid is not None and num_graphs > 1 and not batch_level:
         kt = num_graphs * num_classes
         key_l = local_gid.long() * num_classes + local_type.long()
         onehot_l = F.one_hot(key_l, kt).float() * lm
@@ -282,7 +294,10 @@ def grid_type_matched_pooling(
     onehot_l = F.one_hot(local_type.long(), num_classes).float() * lm
     sums = torch.einsum("bnt,bnc->btc", onehot_l, lx)
     counts = onehot_l.sum(dim=1)
+    if batch_level:
+        sums, counts = sums.sum(0, keepdim=True), counts.sum(0, keepdim=True)
     table = sums / counts.clamp(min=1.0)[..., None] * (counts > 0)[..., None]
+    table = table.expand(B, -1, -1)
     onehot_v = F.one_hot(voxel_type.reshape(B, -1).long(), num_classes).float()
     out = torch.einsum("brt,btc->brc", onehot_v, table)
     return out.reshape((B,) + cells + (C,)).to(local_x.dtype)

@@ -16,7 +16,12 @@ with the edge-list hourglass (``hourglass_cls``), so one ``state_dict`` loads
 into either layout.
 
 Both run deterministic by default; ``deterministic=False`` with per-layer
-Philox ``keys`` turns the hourglass dropout on (training mode).
+Philox ``keys`` turns the hourglass dropout on (training mode).  The
+reference's merged-batch quirks are flags of the configuration, as in the JAX
+models: ``BATCH_LEVEL_MATCHING`` (Q1: type-matched pooling over the whole
+batch) and ``BATCH_LEVEL_GRAPHNORM`` (Q5: every GraphNorm's statistics over
+the whole batch).  With ``USE_WGANGP=False`` the critic's scores pass through
+a sigmoid, for the BCE losses.
 """
 
 from __future__ import annotations
@@ -41,8 +46,6 @@ class GridVoxelGNNGenerator(nn.Module):
     def __init__(self, configuration: Configuration):
         super().__init__()
         cfg = configuration
-        if cfg.BATCH_LEVEL_GRAPHNORM or cfg.BATCH_LEVEL_MATCHING:
-            raise NotImplementedError("the batch-level quirk modes are not ported")
         self.configuration = cfg
         self.compute_dtype = cfg.compute_dtype
         lh, gh, z = cfg.LOCAL_ENCODER_HIDDEN_DIM, cfg.GENERATOR_HIDDEN_DIM, cfg.Z_DIM
@@ -55,11 +58,17 @@ class GridVoxelGNNGenerator(nn.Module):
         self.encoder = self.hourglass_cls(
             gh, cfg.GENERATOR_ENCODER_REPEAT, cfg.HOURGLASS_MIN_CHANNELS,
             conv_type=cfg.GENERATOR_CONV_TYPE, dropout_rate=cfg.ENCODER_DROPOUT_RATE,
+            batch_level_graphnorm=cfg.BATCH_LEVEL_GRAPHNORM,
         )
         self.decoder = mlp_stack(
             2 * gh + lh + VOXEL_FEATURES + z, [gh, gh // 2, gh // 4, gh // 8]
         )
         self.decoder.append(Dense(gh // 8, NUM_CLASSES))
+
+    @property
+    def dropout_sites(self) -> int:
+        """Philox keys a training forward draws: one an hourglass layer."""
+        return len(self.encoder.channels)
 
     def encode(self, batch, z: torch.Tensor):
         """Everything before the hourglass: -> (x, encoded_matched, voxel_x, z, mask, gid), flat,
@@ -73,6 +82,7 @@ class GridVoxelGNNGenerator(nn.Module):
         matched_x = grid_type_matched_pooling(
             batch.local_x.to(dt), batch.local_type, batch.local_mask, vtype, NUM_CLASSES,
             local_gid=batch.local_gid, gid=gid, num_graphs=batch.graphs_per_slot,
+            batch_level=self.configuration.BATCH_LEVEL_MATCHING,
         )
         encoded_matched = self.matched_features_encoder(matched_x)
         z = z.reshape(B, -1, z.shape[-1]).to(dt)
@@ -116,10 +126,6 @@ class GridVoxelGNNDiscriminator(nn.Module):
     def __init__(self, configuration: Configuration):
         super().__init__()
         cfg = configuration
-        if cfg.BATCH_LEVEL_GRAPHNORM or cfg.BATCH_LEVEL_MATCHING:
-            raise NotImplementedError("the batch-level quirk modes are not ported")
-        if not cfg.USE_WGANGP:
-            raise NotImplementedError("only the WGAN critic (USE_WGANGP=True) is ported")
         self.configuration = cfg
         self.compute_dtype = cfg.compute_dtype
         d = cfg.DISCRIMINATOR_HIDDEN_DIM
@@ -130,6 +136,7 @@ class GridVoxelGNNDiscriminator(nn.Module):
         self.encoder = self.hourglass_cls(
             d, cfg.DISCRIMINATOR_ENCODER_REPEAT, cfg.HOURGLASS_MIN_CHANNELS,
             conv_type=cfg.DISCRIMINATOR_CONV_TYPE, dropout_rate=cfg.ENCODER_DROPOUT_RATE,
+            batch_level_graphnorm=cfg.BATCH_LEVEL_GRAPHNORM,
         )
         self.decoder = nn.Sequential(
             Dense(d, d // 2), nn.ReLU(),
@@ -137,6 +144,11 @@ class GridVoxelGNNDiscriminator(nn.Module):
             Dense(d // 4, d // 8), nn.ReLU(),
             Dense(d // 8, 1),
         )
+
+    @property
+    def dropout_sites(self) -> int:
+        """Philox keys a training forward draws: one an hourglass layer."""
+        return len(self.encoder.channels)
 
     def encode(self, batch, label: torch.Tensor, dtype: torch.dtype | None = None):
         """Everything before the hourglass: -> (x (B, R, d), mask, gid), flat, in ``dtype``
@@ -150,13 +162,20 @@ class GridVoxelGNNDiscriminator(nn.Module):
         matched_x = grid_type_matched_pooling(
             batch.local_x.to(dt), batch.local_type, batch.local_mask, vtype, NUM_CLASSES,
             local_gid=batch.local_gid, gid=gid, num_graphs=batch.graphs_per_slot,
+            batch_level=self.configuration.BATCH_LEVEL_MATCHING,
         )
         x = self.mlp_encoder(torch.cat([matched_x, voxel_x, label], dim=-1))
         return x, batch.mask.reshape(B, -1), gid
 
+    def score(self, encoded: torch.Tensor) -> torch.Tensor:
+        """The decoder's per-cell scores in f32: the WGAN critic's, or their sigmoid for
+        the BCE losses (``USE_WGANGP=False``)."""
+        s = self.decoder(encoded).float()
+        return s if self.configuration.USE_WGANGP else torch.sigmoid(s)
+
     def decode(self, batch, encoded: torch.Tensor) -> torch.Tensor:
-        """Per-cell WGAN critic scores in f32 (the sigmoid of ``USE_WGANGP=False`` is not ported)."""
-        return self.decoder(encoded).float().reshape(tuple(batch.x.shape[:4]) + (1,))
+        """Per-cell critic scores in f32, grid-shaped (``score``)."""
+        return self.score(encoded).reshape(tuple(batch.x.shape[:4]) + (1,))
 
     def forward(self, batch, label, deterministic: bool = True,
                 keys: torch.Tensor | None = None, dtype: torch.dtype | None = None) -> torch.Tensor:

@@ -132,7 +132,9 @@ class GraphNorm(nn.Module):
     layer compute them: ``s = E[x] * mean_scale``, ``var = E[x^2] - 2 s E[x] +
     s^2``, output ``x * scale + shift`` in x's dtype.  ``mask`` keeps padded
     nodes out of the statistics; their output is not masked here (the
-    hourglass zeroes them).
+    hourglass zeroes them).  ``segment_ids=None`` takes the statistics over
+    every node of the pack: the reference's GraphNorm without a batch vector
+    (quirk Q5).
     """
 
     def __init__(self, features: int, eps: float = 1e-5):
@@ -142,13 +144,20 @@ class GraphNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.mean_scale = nn.Parameter(torch.ones(features))
 
-    def forward(self, x, segment_ids, num_segments: int, mask=None):
+    def forward(self, x, segment_ids, num_segments: int | None, mask=None):
         dt = _f32(x.dtype)
         xf = x.to(dt)
         w = None if mask is None else mask.to(dt)
-        mean = seg.gather(seg.segment_mean(xf, segment_ids, num_segments, weights=w), segment_ids)
-        ex2 = seg.gather(seg.segment_mean(xf * xf, segment_ids, num_segments, weights=w),
-                         segment_ids)
+        if segment_ids is None:
+            w = torch.ones_like(xf[:, 0]) if w is None else w
+            denom = w.sum().clamp(min=1.0)
+            mean = (xf * w[:, None]).sum(0, keepdim=True) / denom
+            ex2 = (xf * xf * w[:, None]).sum(0, keepdim=True) / denom
+        else:
+            mean = seg.gather(seg.segment_mean(xf, segment_ids, num_segments, weights=w),
+                              segment_ids)
+            ex2 = seg.gather(seg.segment_mean(xf * xf, segment_ids, num_segments, weights=w),
+                             segment_ids)
         s = mean * self.mean_scale
         var = torch.clamp(ex2 - 2.0 * s * mean + s * s, min=0.0)
         inv = self.weight * torch.rsqrt(var + self.eps)
@@ -253,7 +262,8 @@ class HourglassGNN(nn.Module):
     The channel schedule is ``hourglass_channels``.  Layer i's conv is
     ``module_{4i}``, its norm ``module_{4i+1}`` (the grid hourglass's names).
     The norm's statistics are per graph (segment ids, with the padding in its
-    own segment), and padded rows are zeroed after every norm: the padding's
+    own segment), or over the whole pack with ``batch_level_graphnorm`` (quirk
+    Q5), and padded rows are zeroed after every norm: the padding's
     segment has no statistics (var = 0), and its ``1 / sqrt(eps)`` scale would
     otherwise compound to inf / NaN over the layers.  In training mode each
     layer's dropout is the Philox byte mask of ``ops/dropout.py`` under
@@ -261,10 +271,12 @@ class HourglassGNN(nn.Module):
     """
 
     def __init__(self, hidden_dim: int, repeat: int, min_channels: int = 1,
-                 conv_type: str = "GATCONV", dropout_rate: float = 0.2):
+                 conv_type: str = "GATCONV", dropout_rate: float = 0.2,
+                 batch_level_graphnorm: bool = False):
         super().__init__()
         conv_cls = get_conv(conv_type)
         self.conv_type = conv_type
+        self.batch_level_graphnorm = batch_level_graphnorm
         self.hidden_dim = hidden_dim
         self.dropout_rate = dropout_rate
         self.channels = hourglass_channels(hidden_dim, repeat, min_channels)
@@ -289,6 +301,8 @@ class HourglassGNN(nn.Module):
         if drop_on and keys is None:
             raise ValueError("training-mode dropout needs per-layer Philox keys")
         dt = x.dtype
+        if self.batch_level_graphnorm:
+            graph_id = num_segments = None
         for i, (conv, norm) in enumerate(self.layers()):
             x = conv(x, src, dst, edge_mask, dtype=dt)
             x = norm(x, graph_id, num_segments, mask=node_mask) * node_mask[:, None]

@@ -5,8 +5,9 @@ graph): every voxel node receives the mean feature of its graph's program
 nodes of the same type (reference ``models.py:122-129``), through one
 segment mean keyed on ``graph_id * NUM_CLASSES + type``.  Padded nodes carry
 graph id G, a dummy segment.  A (graph, type) with no program node gives
-zeros.  The reference's batch-level mean (quirk Q1, ``batch_level=True``) is
-not ported and raises, as it does on the grid.
+zeros.  ``batch_level=True`` is the reference's own merged-batch mean (quirk
+Q1): every voxel node receives the mean of all the pack's program nodes of
+its type, across graphs.
 """
 
 from __future__ import annotations
@@ -29,7 +30,10 @@ def type_matched_pooling(
 ) -> torch.Tensor:
     """(NV, C) matched features, in ``local_x``'s dtype."""
     if batch_level:
-        raise NotImplementedError("the batch-level quirk modes are not ported")
+        sums = seg.segment_sum(local_x * local_mask[:, None], local_type, NUM_CLASSES)
+        counts = seg.segment_sum(local_mask, local_type, NUM_CLASSES)
+        means = sums / counts.clamp(min=1.0)[:, None] * (counts > 0).to(local_x.dtype)[:, None]
+        return seg.gather(means, voxel_type)
     n_seg = (num_graphs + 1) * NUM_CLASSES
     local_seg = local_graph_id * NUM_CLASSES + local_type
     sums = seg.segment_sum(local_x * local_mask[:, None], local_seg, n_seg)

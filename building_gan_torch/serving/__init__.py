@@ -1,1 +1,2 @@
+from .router import RoutingServer  # noqa: F401
 from .server import InferenceServer  # noqa: F401

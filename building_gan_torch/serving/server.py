@@ -17,7 +17,9 @@ Port of ``building_gan_tpu/serving/server.py``:
 - the generator runs at ``COMPUTE_DTYPE`` (bf16 by default): the noise is
   drawn in f32 and cast on entry, the logits come back f32.
 
-Results are per-voxel arrays in the request's own node order.
+Results are per-voxel arrays in the request's own node order, with the
+version of the weights that served them (``params_version``: 0, then one
+more at each ``swap_params``).
 """
 
 from __future__ import annotations
@@ -117,8 +119,9 @@ class InferenceServer:
         return z, g
 
     def _serve(self, samples, seeds):
+        """-> (logits, hard, soft) as numpy, and the weights' version that computed them."""
         with self._lock:
-            model, packed = self._weights
+            (model, packed), version = self._weights, self.params_version
         batch = gridlib.pack_grid(samples, self.configuration, batch_slots=self.max_batch)
         batch = batch.to(self.device)
         z, g = self._noise(seeds)
@@ -127,7 +130,7 @@ class InferenceServer:
                 logits, hard, soft = model(batch, z, gumbel_noise=g)
         else:
             logits, hard, soft = fast_infer.infer(model, packed, batch, z, gumbel_noise=g)
-        return logits.cpu().numpy(), hard.cpu().numpy(), soft.cpu().numpy()
+        return (logits.cpu().numpy(), hard.cpu().numpy(), soft.cpu().numpy()), version
 
     def _run(self) -> None:
         while True:
@@ -147,7 +150,7 @@ class InferenceServer:
             reqs = [r for _, r in pairs]
             try:
                 samples = [(r[0], r[1]) for r in reqs]
-                logits, hard, soft = self._serve(samples, [r[2] for r in reqs])
+                (logits, hard, soft), version = self._serve(samples, [r[2] for r in reqs])
                 with self._lock:
                     for slot, (i, (_, voxel)) in enumerate(zip(ids, samples)):
                         pos = np.asarray(voxel.location).astype(int)
@@ -157,6 +160,7 @@ class InferenceServer:
                             "label_hard": hard[slot, f_, y_, x_],
                             "label_soft": soft[slot, f_, y_, x_],
                             "types": np.argmax(hard[slot, f_, y_, x_], axis=-1),
+                            "params_version": version,
                         }
                 self.batch_sizes.append(len(ids))
             except Exception as exc:  # noqa: BLE001 - isolate the poison batch
@@ -172,7 +176,8 @@ class InferenceServer:
         """Blocking single-building inference (thread-safe).
 
         Returns per-voxel arrays in the request's node order:
-        ``{"logits": (n,7), "label_hard": (n,7), "label_soft": (n,7), "types": (n,)}``.
+        ``{"logits": (n,7), "label_hard": (n,7), "label_soft": (n,7), "types": (n,)}``,
+        and ``params_version``, the version of the weights that served it.
         Raises ``ValueError`` at submit time for a building that cannot fit the
         server's static shapes, ``TimeoutError`` after ``timeout_s``, and
         ``RuntimeError`` when this request's batch failed.

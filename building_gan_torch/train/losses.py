@@ -14,7 +14,11 @@ Port of ``building_gan_tpu/train/losses.py``:
   lambda_far * MSE(FAR_gen, FAR)``, ratios over the merged batch, the
   ``[-2:]`` split (quirk Q4) and the FAR term detached (quirk Q3).
 
-The BCE losses of ``USE_WGANGP=False`` are not ported: these raise on it.
+With ``USE_WGANGP=False`` both are the BCE losses of the reference instead
+(its non-WGAN branch): the critic's sigmoid scores clipped to [1e-7, 1 - 1e-7],
+``mean(-log D(real)) + mean(-log(1 - D(fake)))`` for the critic (no penalty)
+and ``lambda_adv * mean(-log D(fake))`` for the generator's adversarial term,
+masked means in f32.
 
 Noise (the GP's eps) is passed in, or drawn from an explicit ``torch.Generator``.
 
@@ -34,9 +38,13 @@ import torch.nn.functional as F
 from ..config import NUM_CLASSES, VOID, Configuration
 
 
-def _require_wgangp(cfg: Configuration) -> None:
-    if not cfg.USE_WGANGP:
-        raise NotImplementedError("the BCE losses of USE_WGANGP=False are not ported")
+BCE_EPS = 1e-7  # the BCE losses' clip of the sigmoid scores
+
+
+def _bce(scores: torch.Tensor, target_real: bool) -> torch.Tensor:
+    """``-log(D)`` (real) or ``-log(1 - D)`` (fake) of sigmoid scores, clipped as the JAX losses clip."""
+    d = scores.float().clamp(BCE_EPS, 1.0 - BCE_EPS)
+    return -torch.log(d if target_real else 1.0 - d)
 
 
 def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -84,8 +92,11 @@ def discriminator_loss(
 ) -> torch.Tensor:
     """Critic loss.  ``d_apply_gp`` (default ``d_apply``) is the critic inside the
     penalty, which is differentiated twice: the fused critic is first-order, so
-    the train step passes the plain critic there."""
-    _require_wgangp(cfg)
+    the train step passes the plain critic there.  Under the BCE losses there is
+    no penalty: ``eps``, ``generator`` and ``d_apply_gp`` are not used."""
+    if not cfg.USE_WGANGP:
+        return (masked_mean(_bce(d_apply(label_hard), False), voxel_mask)
+                + masked_mean(_bce(d_apply(types_onehot), True), voxel_mask))
     loss = masked_mean(d_apply(label_hard), voxel_mask) - masked_mean(d_apply(types_onehot), voxel_mask)
     return loss + gradient_penalty(
         d_apply_gp or d_apply, types_onehot, label_soft, voxel_mask, cfg.LAMBDA_GP,
@@ -101,11 +112,14 @@ def generator_loss(
     cfg: Configuration,
 ) -> tuple[torch.Tensor, dict]:
     """Generator loss and its terms (``g_loss_adv``, ``_label``, ``_ratio``, ``_ratio_void``, ``_far``)."""
-    _require_wgangp(cfg)
     voxel_mask = batch.cell_mask
     types_onehot = F.one_hot(batch.cell_type.long(), NUM_CLASSES).to(logits.dtype) * voxel_mask[..., None]
 
-    g_loss_adv = -masked_mean(d_apply(label_hard), voxel_mask) * cfg.LAMBDA_ADV
+    d_fake = d_apply(label_hard)
+    if cfg.USE_WGANGP:
+        g_loss_adv = -masked_mean(d_fake, voxel_mask) * cfg.LAMBDA_ADV
+    else:
+        g_loss_adv = masked_mean(_bce(d_fake, True), voxel_mask) * cfg.LAMBDA_ADV
 
     ce = -(types_onehot * torch.log_softmax(logits, dim=-1)).sum(-1)
     g_loss_label = masked_mean(ce, voxel_mask) * cfg.LAMBDA_LABEL

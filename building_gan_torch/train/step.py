@@ -8,10 +8,13 @@ Each model's route is read from its configuration, per model
 (``models/fast_infer.py::fused_route``): a grid model whose conv is GATCONV
 runs its hourglass fused (``models/fast_train.py``: the CUDA kernels on a
 CUDA batch), as the JAX package does with ``USE_PALLAS_TRAIN``; a model with
-any other conv, and the edge-list models, run their plain modules, as the JAX
-package does without it.  The gradient-penalty critic pass always runs the plain critic,
+any other conv, the edge-list models, the transformer generator and
+``BATCH_LEVEL_GRAPHNORM`` run their plain modules, as the JAX package does
+without it.  The gradient-penalty critic pass always runs the plain critic,
 because the penalty is differentiated twice; it gets the same Philox
-dropout keys as that iteration's real / fake passes.
+dropout keys as that iteration's real / fake passes.  Under the BCE losses
+(``USE_WGANGP=False``) there is no penalty, so no plain critic pass and no eps
+draw (``GP_DTYPE`` is not read, as in the JAX package).
 
 Every random draw (z, the Gumbel noise, the GP's eps, the per-layer dropout
 keys) comes from the ``torch.Generator`` given to the step, on the batch's
@@ -79,8 +82,7 @@ def make_train_step(cfg: Configuration, state: TrainState) -> Callable:
     cfg.require_ported_dtype("make_train_step")
     gen, disc = state.generator, state.discriminator
     model_device = next(gen.parameters()).device
-    n_gen_layers = len(gen.encoder.channels)
-    n_disc_layers = len(disc.encoder.channels)
+    n_gen_layers, n_disc_layers = gen.dropout_sites, disc.dropout_sites
     gen_fused, disc_fused = fused_route(gen), fused_route(disc)
     # the GP critic: the same critic, with f32 activations under GP_DTYPE "float32"
     # (building_gan_tpu/train/step.py clones it at f32), else at its own dtype
@@ -104,7 +106,8 @@ def make_train_step(cfg: Configuration, state: TrainState) -> Callable:
         with torch.no_grad():  # the generator's stop-gradient: nothing is saved
             _, label_hard, label_soft = generator_forward(batch, mask, planes, generator)
         keys = draw_keys(n_disc_layers, generator)
-        eps = torch.rand(tuple(mask.shape) + (1,), generator=generator, device=mask.device)
+        eps = torch.rand(tuple(mask.shape) + (1,), generator=generator,
+                         device=mask.device) if cfg.USE_WGANGP else None
         state.opt_d.zero_grad(set_to_none=True)
         d_loss = L.discriminator_loss(
             critic(batch, planes, keys), types_onehot, label_hard, label_soft, mask, cfg, eps=eps,

@@ -15,7 +15,9 @@ the reference training runtime (``building_gan/src/trainer.py:580-806``):
 - ``test()`` prints the test split's scores.
 
 Per-batch metrics stay on the device until the epoch ends, then come to the
-host in one fetch.  Each epoch's draws come from one ``torch.Generator`` on
+host in one fetch; with ``GRID_BUCKETS`` an epoch's batches come in several
+grid shapes and pass through the same steps (each builds its planes per
+batch), their metrics summed over the shapes.  Each epoch's draws come from one ``torch.Generator`` on
 the trainer's device, seeded from ``(SEED, epoch)`` (validation from
 ``(SEED + 999, epoch)``, the test from ``SEED + 31337``), so a resumed run
 draws from an epoch on what an uninterrupted run draws there.  Torch cannot

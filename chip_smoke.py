@@ -40,7 +40,7 @@ Phases, one short output line or a few each:
      shapes (K=1, K=4), both training stacks forward and backward (K=6,
      dropout on) each layer alone on the kernel's activations, and the
      generator's two odd-width layers (2 -> 1, 1 -> 2) alone at K=3;
-  7. the training main path: 512 real-scale synthetic buildings packed at
+  7. the training main path: 256 real-scale synthetic buildings packed at
      K=6 ("cell" mode), random weights from a seed, 3 WGAN-GP train steps
      (N_CRITIC=5, f32) through train/step.py; losses and metrics finite,
      150 forward and 80 backward layer launches a step, and 30 launches of
@@ -88,9 +88,28 @@ Phases, one short output line or a few each:
      algorithms, the same z, logits and scores on real cells within rtol 5e-3 /
      atol 1e-3; (d) the CLI on phase 9's buildings: train --layout edges (1
      epoch) and test, train --conv-type GCNCONV (1 epoch);
-  11. the run's seconds and a {"kernels": [...]} line: each kernel at f32 and
+  11. the reference's other training modes, the transformer generator,
+     GRID_BUCKETS and the router, at the config of record's widths: (a) the
+     BCE losses (USE_WGANGP=False) on phase 7's batch, 2 bf16 steps and 1 f32
+     step, 150 / 80 training-layer launches and no dropout-byte launch (no
+     penalty: every critic pass fused); (b) BATCH_LEVEL_MATCHING, 2 bf16 steps
+     with phase 7's launches, then both batch-level flags, 2 bf16 steps with no
+     layer-kernel launch; (c) the transformer generator (hidden 128, 4 blocks
+     of 4 heads) against the GATCONV critic, 2 bf16 steps and 1 f32 step with
+     66 / 66 training-layer launches, an eval step, and one K = 6 slot's
+     buildings each alone against inside the slot (f32, within 1e-3); (d) the
+     512 buildings through the GRID_BUCKETS loader at (6,6,6), (8,8,8) and
+     (11,12,12), K = 6: at each bucket shape the hourglass (f32, bf16) by the
+     f64 rules, its cluster size and time, both training stacks layer by
+     layer (f32, bf16), the generator stack timed, one bf16 train step; then
+     the CLI's train --grid-buckets (1 epoch) and test; (e) a RoutingServer
+     over GATCONV servers of grids (8,8,8) and (11,12,12): 32 requests of
+     mixed sizes from 8 threads routed by size, one by name, a weight swap
+     mid-stream (none dropped, later requests on the new version), alone ==
+     batched, one hourglass launch a batch, p50 / p99 a server;
+  12. the run's seconds and a {"kernels": [...]} line: each kernel at f32 and
      at bf16 storage ("dtype"), launches from that dtype's main path;
-  12. the server stopped, every thread joined, and the result line last.
+  13. the server stopped, every thread joined, and the result line last.
 
 Every kernel is held against its plain version run in float64, the gradients
 too, by two rules: its max abs error within 4x the plain float32 version's own,
@@ -114,6 +133,7 @@ import functools
 import gc
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -186,8 +206,10 @@ def bound_of(B, R, chans, cmax, K, act_bytes=4):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
-# The training slice: 512 real-scale buildings packed K=6 (as bench.py), 3 steps.
-TRAIN_BUILDINGS, TRAIN_SLOT_GRAPHS, TRAIN_STEPS = 512, 6, 3
+# The training slice: real-scale buildings packed K=6 (as bench.py), 3 steps.  The train
+# batch packs the first TRAIN_BATCH_BUILDINGS of the TRAIN_BUILDINGS (~105 slots): all 512
+# take 190 slots since the cell packer stopped placing buildings over each other.
+TRAIN_BUILDINGS, TRAIN_BATCH_BUILDINGS, TRAIN_SLOT_GRAPHS, TRAIN_STEPS = 512, 256, 6, 3
 GRAD_NAMES = ("gx", "gW", "gatt", "gvec")
 DROPOUT_RATE = 0.2
 
@@ -272,20 +294,34 @@ def train_samples():
                  for i in range(TRAIN_BUILDINGS))
 
 
-def train_batch():
-    """(cfg, batch on the CPU): 512 real-scale buildings, plan_packing_slots + pack_grid_multi_from_slots."""
+def train_cfg():
+    """The train phases' configuration: the config of record at f32, K = 6 cell packing."""
     from building_gan_torch.config import Configuration
-    from building_gan_torch.data import pack_grid_multi_from_slots, plan_packing_slots
 
-    samples = list(train_samples())
-    max_local = max(s[0].x.shape[0] for s in samples)
-    cfg = Configuration(
+    max_local = max(s[0].x.shape[0] for s in train_samples()[:TRAIN_BATCH_BUILDINGS])
+    return Configuration(
         COMPUTE_DTYPE="float32", GRID_SHAPE=(11, 12, 12), GRID_SLOT_GRAPHS=TRAIN_SLOT_GRAPHS,
         GRID_LOCAL_NODES=int(np.ceil(TRAIN_SLOT_GRAPHS * max_local / 64.0)) * 64,
         GRID_PACK_MODE="cell", ENCODER_DROPOUT_RATE=DROPOUT_RATE,
     )
-    slots = plan_packing_slots(samples, cfg)
-    return cfg, pack_grid_multi_from_slots(samples, slots, cfg, batch_slots=len(slots))
+
+
+@functools.lru_cache(maxsize=None)
+def train_slots():
+    """plan_packing_slots of the train batch's buildings (~5 s on the host), once."""
+    from building_gan_torch.data import plan_packing_slots
+
+    return tuple(plan_packing_slots(list(train_samples()[:TRAIN_BATCH_BUILDINGS]), train_cfg()))
+
+
+def train_batch():
+    """(cfg, batch on the CPU): the first TRAIN_BATCH_BUILDINGS real-scale buildings,
+    plan_packing_slots + pack_grid_multi_from_slots."""
+    from building_gan_torch.data import pack_grid_multi_from_slots
+
+    cfg, slots = train_cfg(), train_slots()
+    return cfg, pack_grid_multi_from_slots(list(train_samples()[:TRAIN_BATCH_BUILDINGS]), slots, cfg,
+                                           batch_slots=len(slots))
 
 
 def perturbed_stack(hidden, repeat, gen, dev):
@@ -1412,30 +1448,45 @@ def layer_launches():
             gt.bytes_launches.value)
 
 
-def plain_steps(cfg, batch, dev, steps, tag, card):
-    """``steps`` train steps of fresh plain models (weights from torch.manual_seed(cfg.SEED))
-    on ``batch``, the grid's or the edge list's by cfg.LAYOUT: each step finite, no
-    layer-kernel launch (hourglass, training forward or backward), every dropout mask's
-    bytes from the Philox kernel; -> (state, step ms, peak GiB)."""
+def step_launches(cfg, state):
+    """(hourglass, training forward, training backward, dropout-byte) launches one train step of
+    ``state`` makes, from the step's structure: N_CRITIC critic updates, each a stop-grad
+    generator forward, the critic on real and fake labels and (WGAN-GP only) the plain
+    critic inside the penalty, then the G update's generator and critic.  A fused model
+    launches its layers' kernels (backward where a gradient flows: the critic updates' and
+    the G update's critic, the G update's generator); a plain one draws each dropout site's
+    bytes with the Philox kernel."""
+    from building_gan_torch.models.fast_infer import fused_route
+
+    n, gp = cfg.N_CRITIC, int(cfg.USE_WGANGP)
+    gf, df = int(fused_route(state.generator)), int(fused_route(state.discriminator))
+    Lg, Ld = state.generator.dropout_sites, state.discriminator.dropout_sites
+    return (0, (n + 1) * Lg * gf + (2 * n + 1) * Ld * df, Lg * gf + (2 * n + 1) * Ld * df,
+            (n + 1) * Lg * (1 - gf) + (2 * n + 1) * Ld * (1 - df) + n * Ld * gp)
+
+
+def counted_steps(cfg, batch, dev, steps, tag, card, want=None):
+    """``steps`` train steps of fresh models (weights from torch.manual_seed(cfg.SEED)) on
+    ``batch``, the models by cfg.LAYOUT and cfg.GENERATOR_ARCH: each step finite, with
+    ``want`` (hourglass, training forward, backward, dropout-byte) launches (default:
+    ``step_launches``); -> (state, step ms, peak GiB)."""
     from building_gan_torch.models.discriminator import VoxelGNNDiscriminator
     from building_gan_torch.models.generator import VoxelGNNGenerator
     from building_gan_torch.models.grid_models import GridVoxelGNNDiscriminator, GridVoxelGNNGenerator
+    from building_gan_torch.models.transformer import GridTransformerGenerator
     from building_gan_torch.train.state import create_train_state
-    from building_gan_torch.models.fast_infer import fused_route
     from building_gan_torch.train.step import make_train_step
 
-    G, D = ((GridVoxelGNNGenerator, GridVoxelGNNDiscriminator) if cfg.LAYOUT == "grid"
-            else (VoxelGNNGenerator, VoxelGNNDiscriminator))
+    if cfg.LAYOUT != "grid":
+        G, D = VoxelGNNGenerator, VoxelGNNDiscriminator
+    else:
+        G = GridTransformerGenerator if cfg.GENERATOR_ARCH == "transformer" else GridVoxelGNNGenerator
+        D = GridVoxelGNNDiscriminator
     torch.manual_seed(cfg.SEED)
     state = create_train_state(cfg, G(cfg), D(cfg), device=dev)
-    if fused_route(state.generator) or fused_route(state.discriminator):
-        raise AssertionError(f"{tag}: a model took the fused route")
+    want = step_launches(cfg, state) if want is None else want
     step = make_train_step(cfg, state)
     gen = torch.Generator(device=dev).manual_seed(0)
-    Lg, Ld = len(state.generator.encoder.channels), len(state.discriminator.encoder.channels)
-    # dropout layers a step: each critic update's generator, real, fake and GP passes, then
-    # the G update's generator and critic passes
-    want_bytes = cfg.N_CRITIC * (Lg + 3 * Ld) + Lg + Ld
     n_real = int(batch.cell_mask.sum().item())
     ms, peak = [], []
     for i in range(steps):
@@ -1449,12 +1500,26 @@ def plain_steps(cfg, batch, dev, steps, tag, card):
         say(f"{tag} step {i + 1}: {t:.1f} ms, {n_real / (t / 1e3):.1f} real voxel nodes/s, peak "
             f"device memory {peak[-1]:.3f} GiB; g_loss {m['g_loss'].item():.5f}, d_loss "
             f"{m['d_loss'].item():.5f}, f1 {m['f1'].item():.4f}; launches hourglass {got[0]}, "
-            f"training forward {got[1]}, backward {got[2]} (expect 0), dropout bytes {got[3]} "
-            f"(expect {want_bytes}) on {card}")
+            f"training forward {got[1]}, backward {got[2]}, dropout bytes {got[3]} (expect "
+            f"{want}) on {card}")
         if bad:
             raise AssertionError(f"{tag} step {i + 1}: non-finite {bad}")
-        if got != (0, 0, 0, want_bytes):
-            raise AssertionError(f"{tag} step {i + 1}: launches {got}")
+        if got != tuple(want):
+            raise AssertionError(f"{tag} step {i + 1}: launches {got}, expected {want}")
+    return state, ms, peak
+
+
+def plain_steps(cfg, batch, dev, steps, tag, card):
+    """``steps`` train steps of fresh plain models on ``batch``, the grid's or the edge list's
+    by cfg.LAYOUT: each step finite, no layer-kernel launch (hourglass, training forward or
+    backward), every dropout mask's bytes from the Philox kernel (each critic update's
+    generator, real, fake and GP passes, then the G update's generator and critic passes);
+    -> (state, step ms, peak GiB)."""
+    Lg, Ld = 2 * cfg.GENERATOR_ENCODER_REPEAT, 2 * cfg.DISCRIMINATOR_ENCODER_REPEAT
+    want = (0, 0, 0, cfg.N_CRITIC * (Lg + 3 * Ld) + Lg + Ld)
+    state, ms, peak = counted_steps(cfg, batch, dev, steps, tag, card, want)
+    if step_launches(cfg, state) != want:
+        raise AssertionError(f"{tag}: a model took the fused route")
     return state, ms, peak
 
 
@@ -1528,8 +1593,6 @@ def layout_parity(dev, card):
     """(c): for each conv, one state_dict in the grid and the edge models, the first 16
     buildings, f32 (TF32 off), deterministic algorithms, the same z: logits and scores on
     real cells within the JAX package's grid-vs-edge tolerance."""
-    import dataclasses
-
     from building_gan_torch.config import Configuration
     from building_gan_torch.data import pack_grid
     from building_gan_torch.data.batching import pack_graphs
@@ -1635,6 +1698,375 @@ def registry_phase(cfg_t, batch_t, grid_flags, root, dev, card):
     registry_cli(grid_flags, root, card)
     say(f"phase 10d: CLI {time.perf_counter() - t:.1f} s")
     say(f"phase: conv registry and edge layout {time.perf_counter() - t_phase:.1f} s")
+    return threads
+
+
+# Phase 11: the reference's other training modes (the BCE losses, the batch-level quirks), the
+# transformer generator, GRID_BUCKETS and the router, at the config of record's widths.
+MODE_STEPS = 2
+BUCKETS = ((6, 6, 6), (8, 8, 8), (11, 12, 12))
+BUCKET_EXTRA_SEEDS = range(2000, 2400)  # default-scale buildings for a bucket the 512 leave empty
+ROUTER_GRIDS = {"small": (8, 8, 8), "big": (11, 12, 12)}
+ROUTER_REQUESTS, ROUTER_CLIENTS, ROUTER_SWAP_AFTER = 32, 8, 12  # each client: 2 requests, the swap, 2
+
+
+def mode_steps(cfg_t, batch_t, dev, card):
+    """(a) the BCE losses (USE_WGANGP=False): 2 bf16 steps and 1 f32 step, every critic pass
+    fused (no penalty: no plain pass, no dropout-byte launch); (b) BATCH_LEVEL_MATCHING alone,
+    2 bf16 steps with phase 7's launches, then both batch-level flags, 2 bf16 steps, every
+    layer plain (180 dropout-byte launches a step)."""
+    cfg_tb = cfg_t.replace(COMPUTE_DTYPE="bfloat16")
+    n_real = int(batch_t.mask.sum().item())
+    for tag, cfg, steps, want in (
+        ("BCE (bfloat16)", cfg_tb.replace(USE_WGANGP=False), MODE_STEPS, (0, 150, 80, 0)),
+        ("BCE (float32)", cfg_t.replace(USE_WGANGP=False), 1, (0, 150, 80, 0)),
+        ("batch-level matching (bfloat16)", cfg_tb.replace(BATCH_LEVEL_MATCHING=True), MODE_STEPS,
+         (0, 150, 80, 30)),
+        ("batch-level matching and GraphNorm (bfloat16)",
+         cfg_tb.replace(BATCH_LEVEL_MATCHING=True, BATCH_LEVEL_GRAPHNORM=True), MODE_STEPS,
+         (0, 0, 0, 180)),
+    ):
+        state, ms, peak = counted_steps(cfg, batch_t, dev, steps, tag, card, want)
+        if step_launches(cfg, state) != want:
+            raise AssertionError(f"{tag}: the step's structure gives {step_launches(cfg, state)}")
+        say(f"{tag}: steps {' '.join(f'{t:.1f}' for t in ms)} ms, {n_real / (ms[-1] / 1e3):.1f} real "
+            f"voxel nodes/s (last step), peak device memory {max(peak):.3f} GiB on {card}")
+        del state
+        torch.cuda.empty_cache()
+
+
+def transformer_steps(cfg_t, batch_t, dev, card):
+    """(c) the transformer generator at the config of record's widths (hidden 128, 4 blocks of
+    4 heads) against the GATCONV critic (hidden 64, repeat 3): 2 bf16 steps and 1 f32 step
+    (66 forward and 66 backward training-layer launches, 78 dropout-byte launches: the
+    generator's 8 sites in 6 forwards and the penalty's 30), an eval step (the critic's 6
+    forward launches, no hourglass), then one building's logits alone against the same
+    building in its K = 6 slot (f32, deterministic): the port keeps a slot's buildings apart."""
+    from building_gan_torch.data import pack_grid, pack_grid_multi_from_slots
+    from building_gan_torch.models.transformer import GridTransformerGenerator
+    from building_gan_torch.train.step import make_eval_step
+
+    cfg = cfg_t.replace(COMPUTE_DTYPE="bfloat16", GENERATOR_ARCH="transformer", TRANSFORMER_LAYERS=4,
+                        TRANSFORMER_HEADS=4)
+    n_real = int(batch_t.mask.sum().item())
+    for tag, c, steps in (("transformer (bfloat16)", cfg, MODE_STEPS),
+                          ("transformer (float32)", cfg.replace(COMPUTE_DTYPE="float32"), 1)):
+        state, ms, peak = counted_steps(c, batch_t, dev, steps, tag, card, (0, 66, 66, 78))
+        if step_launches(c, state) != (0, 66, 66, 78):
+            raise AssertionError(f"{tag}: the step's structure gives {step_launches(c, state)}")
+        say(f"{tag}: steps {' '.join(f'{t:.1f}' for t in ms)} ms, {n_real / (ms[-1] / 1e3):.1f} real "
+            f"voxel nodes/s (last step), peak device memory {max(peak):.3f} GiB ({batch_t.mask.shape[0]} "
+            f"slots, no cut) on {card}")
+        if c.COMPUTE_DTYPE == "bfloat16":
+            before = layer_launches()
+            m, t = wall_ms(lambda: make_eval_step(c, state)(batch_t,
+                                                            torch.Generator(device=dev).manual_seed(1)))
+            got = tuple(b - a for a, b in zip(before, layer_launches()))
+            bad = [k for k, v in m.items() if not torch.isfinite(v).all().item()]
+            say(f"{tag} eval step: {t:.1f} ms, g_loss {m['g_loss'].item():.5f}, f1 {m['f1'].item():.4f}; "
+                f"launches {got} (expect (0, 6, 0, 0))")
+            if bad or got != (0, 6, 0, 0):
+                raise AssertionError(f"{tag} eval step: non-finite {bad}, launches {got}")
+            weights = state.generator.state_dict()
+        del state
+        torch.cuda.empty_cache()
+
+    samples, slots = list(train_samples()[:TRAIN_BATCH_BUILDINGS]), train_slots()
+    slot = max(slots, key=lambda s: len(s.placed))
+    cfg32 = cfg.replace(COMPUTE_DTYPE="float32")
+    model = GridTransformerGenerator(cfg32).to(dev).eval()
+    model.load_state_dict(weights)
+    b6 = pack_grid_multi_from_slots(samples, [slot], cfg32, batch_slots=1).to(dev)
+    g = torch.Generator(device=dev).manual_seed(21)
+    z6 = torch.randn(tuple(b6.mask.shape) + (cfg.Z_DIM,), generator=g, device=dev)
+    worst = 0.0
+    with torch.no_grad():
+        out6 = model(b6, z6, gumbel_noise=torch.zeros(tuple(b6.mask.shape) + (7,), device=dev))[0]
+        for i, (f0, y0, x0) in slot.placed:
+            b1 = pack_grid([samples[i]], cfg32, batch_slots=1).to(dev)
+            f, y, x = (torch.as_tensor(a, device=dev) for a in samples[i][1].location.astype(np.int64).T)
+            z1 = torch.zeros(tuple(b1.mask.shape) + (cfg.Z_DIM,), device=dev)
+            z1[0, f, y, x] = z6[0, f + f0, y + y0, x + x0]
+            out1 = model(b1, z1, gumbel_noise=torch.zeros(tuple(b1.mask.shape) + (7,), device=dev))[0]
+            worst = max(worst, (out1[0, f, y, x] - out6[0, f + f0, y + y0, x + x0]).abs().max().item())
+    say(f"transformer: each of the {len(slot.placed)} buildings of a K={cfg.GRID_SLOT_GRAPHS} slot alone "
+        f"(K=1) against inside its slot, f32, deterministic: logits max abs {worst:.3e} (tol "
+        f"{LOGITS_ATOL})")
+    if not (np.isfinite(worst) and worst <= LOGITS_ATOL):
+        raise AssertionError("the transformer's buildings of one slot do not stay apart")
+
+
+def bucket_kernels(tag, batch, dev, card):
+    """At one bucket's shapes, on its packed slots: the hourglass at f32 and bf16 against its
+    plain version by the f64 rules (phase 3, 6b), the cluster size it chooses, and its time;
+    the generator (Cmax 128) and critic (Cmax 64) training stacks at f32 and bf16 each layer
+    alone on the kernel's own activations, the stack equal to the chain (``hold_chain``),
+    and the generator stack's forward and backward timed.  Raises on a failure."""
+    from building_gan_torch.ops import dropout as drop
+    from building_gan_torch.ops import gat_train as gt
+    from building_gan_torch.ops import hourglass as hg
+
+    grid, K = batch.grid_shape, batch.graphs_per_slot
+    B, R = batch.mask.shape[0], int(np.prod(grid))
+    gen = torch.Generator().manual_seed(41)
+    kgen = torch.Generator(device=dev).manual_seed(42)
+    planes = gt.build_planes(batch.mask, batch.gid, grid)
+    (Ws, atts, vecs), chans = perturbed_stack(128, 7, gen, dev)
+    x = torch.randn((B,) + tuple(grid) + (128,), generator=gen).to(dev)
+    mask, gid = batch.mask.contiguous(), batch.gid.contiguous()
+    for dt in (torch.float32, BF16):
+        args = (x.to(dt), mask, Ws, atts, vecs, chans, gid, K)
+        with torch.no_grad():
+            got = hg.hourglass_cuda(*args)
+            want = hg.hourglass_plain(*args)
+            want64 = (hourglass_stored64(*args) if dt == BF16 else hg.hourglass_plain(
+                *(a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args)))
+        torch.cuda.synchronize()
+        ok, report, err = f64_rule(got, want, want64)
+        say(f"{tag}: hourglass {str(dt)[6:]} ({B} slots, K={K}) {report}")
+        if not ok:
+            raise AssertionError(f"{tag}: the hourglass kernel disagrees with its plain version at {dt}")
+        del got, want, want64
+        if dt == torch.float32:
+            with torch.no_grad():
+                hg.hourglass_cuda(*args)
+                ms = timed_ms(lambda: hg.hourglass_cuda(*args), 10)
+            bound = bound_of(B, R, chans, 128, K)
+            say(f"{tag}: hourglass kernel {ms:.4f} ms (CUDA events, 10 launches), bound {bound[0]:.4f} ms "
+                f"({bound[1]}), cluster {hg.cluster_size(B, R, 128, K, chans)} CTAs a slot on {card}")
+    for name, hidden, repeat in (("generator", 128, 7), ("critic", 64, 3)):
+        weights, tchans = perturbed_stack(hidden, repeat, gen, dev)
+        keys = drop.draw_keys(len(tchans), kgen)
+        for dt in (torch.float32, BF16):
+            xs = torch.randn(B, R, hidden, generator=gen).to(dev, dt)
+            gy = torch.randn(B, R, hidden, generator=gen).to(dev, dt)
+            fused, _ = stack_fns(planes, keys, grid, K, tchans, dt)
+            stack = with_grads(fused, (xs, *weights), gy)
+            hold_chain(f"{tag}: {name}", xs, gy, planes, weights, keys, grid, K, tchans,
+                       range(len(tchans)), stack=stack)
+            del stack
+            if name == "generator" and dt == torch.float32:
+                leaves = [t.clone().requires_grad_(True) for t in (xs, *weights)]
+                with torch.no_grad():
+                    fused(*leaves)
+                    kf = timed_ms(lambda: fused(*leaves), 5)
+                y = fused(*leaves)
+                back = lambda: torch.autograd.grad(y, leaves, gy, retain_graph=True)  # noqa: E731
+                back()
+                kb = timed_ms(back, 5)
+                fb = train_bound(B, R, tchans, hidden, False, True)
+                bb = train_bound(B, R, tchans, hidden, True, True)
+                say(f"{tag}: generator stack (14 layers) forward {kf:.3f} ms (bound {fb[0]:.4f}, "
+                    f"{fb[1]}), backward {kb:.3f} ms (bound {bb[0]:.4f}, {bb[1]}) on {card}")
+                del y, leaves
+            torch.cuda.empty_cache()
+
+
+def bucket_phase(cfg_t, grid_flags, root, dev, card):
+    """(d) GRID_BUCKETS: the 512 buildings through the bucket loader at K = 6 and GRID_BATCH
+    64 (buildings, slots and batches a bucket); on each bucket's first batch
+    ``bucket_kernels`` and one bf16 train step with phase 7's launches; then ``train
+    --grid-buckets ... --slot-graphs 6`` for one epoch and ``test`` on phase 9's buildings."""
+    import os
+
+    from building_gan_torch.data import generate_building, process_building
+    from building_gan_torch.data.pipeline import PackedLoader
+
+    cfg = cfg_t.replace(GRID_BUCKETS=BUCKETS)
+    samples = list(train_samples())
+    t = time.perf_counter()
+    batches = PackedLoader(samples, cfg, shuffle=False)._make_batches(samples)
+    for shape in BUCKETS:
+        if any(b.grid_shape == shape for b in batches):
+            continue
+        smaller = [b for b in BUCKETS if np.prod(b) < np.prod(shape)]
+        extra = []
+        for seed in BUCKET_EXTRA_SEEDS:
+            s = process_building(*generate_building(seed), cfg, f"{seed:06d}")
+            e = s[1].location.max(axis=0) + 1
+            if (e <= shape).all() and not any((e <= b).all() for b in smaller):
+                extra.append(s)
+            if len(extra) == 12:
+                break
+        say(f"buckets: the 512 buildings leave {shape} empty; {len(extra)} default-scale synthetic "
+            f"buildings (seeds from {BUCKET_EXTRA_SEEDS.start}) added for it")
+        samples += extra
+        batches = PackedLoader(samples, cfg, shuffle=False)._make_batches(samples)
+    by_shape = {shape: [b for b in batches if b.grid_shape == shape] for shape in BUCKETS}
+    say(f"buckets: {len(samples)} buildings at GRID_BUCKETS={BUCKETS}, K={cfg.GRID_SLOT_GRAPHS}, "
+        f"GRID_BATCH {cfg.GRID_BATCH} ({time.perf_counter() - t:.1f} s on the host): " + ", ".join(
+            f"{shape}: {sum(int(b.graph_mask.sum()) for b in bs)} buildings in "
+            f"{sum(int((b.graph_mask.sum(1) > 0).sum()) for b in bs)} slots, {len(bs)} batches"
+            for shape, bs in by_shape.items()))
+    if sum(int(b.graph_mask.sum()) for b in batches) != len(samples) or not all(by_shape.values()):
+        raise AssertionError(f"the bucket loader gave shapes {[b.grid_shape for b in batches]}")
+    for shape, bs in by_shape.items():
+        b = bs[0]
+        tag = f"bucket {shape} ({b.mask.shape[0]} slots, fill {100 * float(b.mask.sum()) / b.mask.numel():.1f}%)"
+        batch = b.to(dev)
+        bucket_kernels(tag, batch, dev, card)
+        counted_steps(cfg.replace(COMPUTE_DTYPE="bfloat16"), batch, dev, 1, f"bucket {shape} (bfloat16)",
+                      card, (0, 150, 80, 30))
+        del batch
+        torch.cuda.empty_cache()
+    flags = grid_flags + ["--grid-buckets", ",".join("x".join(map(str, s)) for s in BUCKETS)]
+    run = os.path.join(root, "run_buckets")
+    out, s_train = run_cli(["train", "--epochs", "1", "--log-dir", run] + flags, "train --grid-buckets")
+    epochs = epoch_lines(out)
+    say(f"cli --grid-buckets: train --epochs 1 {s_train:.1f} s (process included): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in epochs.get(1, {}).items()) + f" on {card}")
+    if sorted(epochs) != [1] or not all(np.isfinite(v) for v in epochs[1].values()):
+        raise AssertionError(f"CLI train --grid-buckets: epochs {epochs}")
+    out, s_test = run_cli(["test", "--log-dir", run] + flags, "test --grid-buckets")
+    got = {k: float(v) for k, v in re.findall(r"(\w+_test): (\S+)", out)}
+    say(f"cli --grid-buckets: test {s_test:.1f} s: " + ", ".join(f"{k} {v:.4f}" for k, v in got.items()))
+    if set(got) != set(TEST_METRICS) or not all(np.isfinite(v) for v in got.values()):
+        raise AssertionError(f"CLI test --grid-buckets printed {got}")
+
+
+def router_phase(dev, card):
+    """(e) RoutingServer: GATCONV servers of grids (8, 8, 8) and (11, 12, 12) at the JAX
+    defaults, 32 requests of mixed sizes from 8 threads: each lands on the smallest grid that
+    holds it, one more by name; the big model's weights swapped mid-stream (each client
+    sends half its requests, the swap starts after 12 answers with the rest of that half in
+    flight, and the clients send their second half once it returns: no request dropped,
+    the second half served by the new version); alone == batched; one hourglass launch a
+    batch on each server; p50 / p99 a server; stop() joins them all.  Returns the server and
+    client threads."""
+    from building_gan_torch.config import Configuration
+    from building_gan_torch.models.grid_models import GridVoxelGNNGenerator
+    from building_gan_torch.ops import hourglass as hg
+    from building_gan_torch.serving import RoutingServer
+
+    samples = list(train_samples())
+    fits = {i: bool((s[1].location.max(axis=0) + 1 <= ROUTER_GRIDS["small"]).all())
+            for i, s in enumerate(samples)}
+    small_ids = [i for i in fits if fits[i]][:ROUTER_REQUESTS // 2]
+    big_ids = [i for i in fits if not fits[i]][:ROUTER_REQUESTS // 2]
+    order = [i for pair in zip(small_ids, big_ids) for i in pair]
+    if len(order) != ROUTER_REQUESTS:
+        raise AssertionError(f"{len(small_ids)} buildings fit {ROUTER_GRIDS['small']} and "
+                             f"{len(big_ids)} do not: too few for {ROUTER_REQUESTS} requests")
+    cfg = Configuration()
+    torch.manual_seed(7)
+    w0 = GridVoxelGNNGenerator(cfg).state_dict()
+    torch.manual_seed(8)
+    w1 = GridVoxelGNNGenerator(cfg).state_dict()
+    router = RoutingServer()
+    hg.launches.reset()
+    kw = dict(max_batch=MAX_BATCH, max_delay_ms=5.0, device=dev)
+    servers = {"big": router.add_model("big", cfg, w0, **kw),
+               "small": router.add_model("small", cfg.replace(GRID_SHAPE=ROUTER_GRIDS["small"]), w0, **kw)}
+    threads = [s._thread for s in servers.values()]
+    try:
+        for name in servers:  # warm-up
+            router.infer(*samples[small_ids[0]], model=name, seed=0, timeout_s=REQUEST_TIMEOUT_S)
+        for s in servers.values():
+            s.batch_sizes.clear()
+        for i in order:
+            want = servers["small" if fits[i] else "big"]
+            if router.route(samples[i][1]) is not want:
+                raise AssertionError(f"request {i} routed to the wrong grid")
+        results, latency, sent, errors = {}, {}, {}, []
+        lock, swapped = threading.Lock(), threading.Event()
+
+        def client(idx):
+            try:
+                for n, i in enumerate(idx):
+                    if n == len(idx) // 2 and not swapped.wait(timeout=REQUEST_TIMEOUT_S):
+                        raise TimeoutError("the weight swap did not return")
+                    t = time.perf_counter()
+                    with lock:
+                        sent[i] = t
+                    r = router.infer(*samples[i], seed=i, timeout_s=REQUEST_TIMEOUT_S)
+                    with lock:
+                        latency[i] = time.perf_counter() - t
+                        results[i] = r
+            except Exception as e:  # noqa: BLE001 - re-raised by the main thread
+                with lock:
+                    errors.append(e)
+
+        clients = [threading.Thread(target=client, args=(order[c::ROUTER_CLIENTS],))
+                   for c in range(ROUTER_CLIENTS)]
+        threads += clients
+        for th in clients:
+            th.start()
+        deadline = time.perf_counter() + REQUEST_TIMEOUT_S
+        while len(results) < ROUTER_SWAP_AFTER and not errors and time.perf_counter() < deadline:
+            time.sleep(0.001)
+        with lock:
+            in_flight = len(sent) - len(results)
+        t0 = time.perf_counter()
+        version = router.swap_params("big", w1)
+        t_swap = time.perf_counter()
+        swap_ms = (t_swap - t0) * 1e3
+        swapped.set()
+        for th in clients:
+            th.join(timeout=REQUEST_TIMEOUT_S * 2)
+        if any(th.is_alive() for th in clients):
+            raise TimeoutError("a router client thread did not finish")
+        if errors:
+            raise errors[0]
+        if len(results) != ROUTER_REQUESTS:
+            raise AssertionError(f"{len(results)} of {ROUTER_REQUESTS} requests answered")
+        for i, r in results.items():
+            n = samples[i][1].x.shape[0]
+            if r["logits"].shape != (n, 7) or not np.isfinite(r["logits"]).all():
+                raise AssertionError(f"request {i}: bad output")
+        served = {k: sum(s.batch_sizes) for k, s in servers.items()}
+        routed = {"small": sum(fits[i] for i in order), "big": sum(not fits[i] for i in order)}
+        after = [i for i in order if not fits[i] and sent[i] > t_swap]
+        stale = [i for i in after if results[i]["params_version"] != version]
+        say(f"router: {ROUTER_REQUESTS} requests from {ROUTER_CLIENTS} threads, routed {routed}, served "
+            f"{served}; swap to version {version} after {ROUTER_SWAP_AFTER} answers with {in_flight} "
+            f"requests in flight, {swap_ms:.1f} ms; {len(after)} big requests sent after it, "
+            f"{len(stale)} of them served by the old weights; versions served "
+            f"{sorted(set(r['params_version'] for r in results.values()))}")
+        if served != routed or stale or not after or version != 1:
+            raise AssertionError("the router misrouted, dropped or served stale weights")
+        named = router.infer(*samples[small_ids[0]], model="big", seed=5, timeout_s=REQUEST_TIMEOUT_S)
+        if sum(servers["big"].batch_sizes) != routed["big"] + 1 or named["params_version"] != version:
+            raise AssertionError("the named route did not reach the big model")
+        alone_diff = 0.0
+        for i in (small_ids[0], after[-1]):
+            alone = router.infer(*samples[i], seed=i, timeout_s=REQUEST_TIMEOUT_S)
+            if not np.array_equal(alone["types"], results[i]["types"]):
+                raise AssertionError(f"request {i}: types served alone differ from batched")
+            alone_diff = max(alone_diff, float(np.abs(alone["logits"] - results[i]["logits"]).max()))
+        batches = sum(len(s.batch_sizes) for s in servers.values()) + len(servers)  # + warm-ups
+        launches = hg.launches.value
+        for name, s in servers.items():
+            lat = np.array([latency[i] for i in order if fits[i] == (name == "small")]) * 1e3
+            say(f"router ({name}, grid {s.configuration.GRID_SHAPE}): {len(s.batch_sizes)} batches "
+                f"{list(s.batch_sizes)}, latency p50 {np.percentile(lat, 50):.1f} ms p99 "
+                f"{np.percentile(lat, 99):.1f} ms on {card}")
+        say(f"router: alone == batched types, logits max diff {alone_diff:.1e}; hourglass launches "
+            f"{launches} for {batches} batches; models {router.models()}")
+        if launches != batches or min(len(s.batch_sizes) for s in servers.values()) < 1:
+            raise AssertionError("a router server did not launch the hourglass once a batch")
+    finally:
+        router.stop()
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("a router server or client thread is still running")
+    return threads
+
+
+def modes_phase(cfg_t, batch_t, grid_flags, root, dev, card):
+    """Phase 11: modes, transformer, buckets and router; -> the threads it started (stopped)."""
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    mode_steps(cfg_t, batch_t, dev, card)
+    say(f"phase 11a-b: BCE and batch-level steps {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    transformer_steps(cfg_t, batch_t, dev, card)
+    say(f"phase 11c: transformer {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    bucket_phase(cfg_t, grid_flags, root, dev, card)
+    say(f"phase 11d: buckets {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    threads = router_phase(dev, card)
+    say(f"phase 11e: router {time.perf_counter() - t:.1f} s")
+    say(f"phase: modes, transformer, buckets and router {time.perf_counter() - t_phase:.1f} s")
     return threads
 
 
@@ -2013,7 +2445,7 @@ def main() -> int:
     cfg_t, batch_t = train_batch()
     n_real = int(batch_t.mask.sum().item())
     fill = 100.0 * n_real / batch_t.mask.numel()
-    say(f"train data: {TRAIN_BUILDINGS} buildings in {batch_t.mask.shape[0]} slots of "
+    say(f"train data: {TRAIN_BATCH_BUILDINGS} buildings in {batch_t.mask.shape[0]} slots of "
         f"{cfg_t.GRID_SHAPE} at K={batch_t.graphs_per_slot}, {n_real} real nodes, fill {fill:.1f}% "
         f"({time.perf_counter() - t_phase:.1f} s on the host)")
     batch_t = batch_t.to(dev)
@@ -2111,10 +2543,13 @@ def main() -> int:
 
         # 10. the conv registry and the edge layout: plain modules on the card
         threads += registry_phase(cfg_t, batch_t, grid_flags, root, dev, card)
+
+        # 11. the other training modes, the transformer generator, GRID_BUCKETS and the router
+        threads += modes_phase(cfg_t, batch_t, grid_flags, root, dev, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # 11. kernels line: the training kernels' times are one generator stack
+    # 12. kernels line: the training kernels' times are one generator stack
     # (14 layer launches) at the step's shapes; each kernel at f32 and at bf16 storage,
     # launches from that dtype's main path (the server's, 3 train steps)
     kernels = []
@@ -2148,7 +2583,7 @@ def main() -> int:
     say(f"total: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
 
-    # 12. result line, last
+    # 13. result line, last
     if any(srv._thread.is_alive() for srv in servers) or any(th.is_alive() for th in threads):
         raise AssertionError("a server or client thread is still running")
     say(json.dumps({"ok": True, "device": {

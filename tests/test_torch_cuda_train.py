@@ -323,6 +323,103 @@ def test_gp_dropout_masks_from_the_kernel_match_keep_mask(C, width, cuda_device)
         assert torch.equal(drop.dropout(x.cpu(), key.cpu(), 0.2, width=width) != 0, kept.cpu())
 
 
+def _tiny_cfg(**kw):
+    return Configuration(
+        GRID_SHAPE=(10, 8, 8), GENERATOR_HIDDEN_DIM=32, GENERATOR_ENCODER_REPEAT=2,
+        LOCAL_ENCODER_HIDDEN_DIM=32, Z_DIM=16, GENERATOR_MLP_ENCODER_REPEAT=1,
+        LOCAL_GRAPH_ENCODER_REPEAT=1, DISCRIMINATOR_ENCODER_REPEAT=2, DISCRIMINATOR_HIDDEN_DIM=32,
+        N_CRITIC=2, GRID_LOCAL_NODES=128, GRID_SLOT_GRAPHS=3, GRID_PACK_MODE="cell",
+        TRANSFORMER_LAYERS=2, **kw)
+
+
+def _launches():
+    from building_gan_torch.ops import hourglass as hg
+
+    return (hg.launches.value, gt.fwd_launches.value, gt.bwd_launches.value,
+            gt.bytes_launches.value)
+
+
+def _one_step(cfg, batch, gen, disc, dev):
+    """One train step on the card from fresh models; -> (metrics, launches it made:
+    hourglass, training forward, training backward, dropout bytes)."""
+    state = create_train_state(cfg, gen, disc)
+    before = _launches()
+    metrics = make_train_step(cfg, state)(batch, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    for k, v in metrics.items():
+        assert torch.isfinite(v).all(), k
+    return metrics, tuple(b - a for a, b in zip(before, _launches()))
+
+
+def _grid_batch(cfg, dev):
+    samples = [process_building(*generate_building(1000 + i), cfg, str(i)) for i in range(8)]
+    samples = [s for s in samples if int(s[1].location[:, 0].max()) < 10]
+    return pack_grid_multi(samples, cfg, batch_slots=6).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conv", ["GATV2CONV", "GCNCONV", "GRAPHCONV"])
+def test_plain_grid_conv_step_runs_on_the_card(conv, cuda_device):
+    """A plain grid conv at the JAX default bf16: finite, no layer-kernel launch, every
+    dropout mask's bytes from the Philox kernel (each critic update's generator, real,
+    fake and GP passes, then the G update's generator and critic)."""
+    cfg = _tiny_cfg(GENERATOR_CONV_TYPE=conv, DISCRIMINATOR_CONV_TYPE=conv)
+    torch.manual_seed(0)
+    _, got = _one_step(cfg, _grid_batch(cfg, cuda_device), GridVoxelGNNGenerator(cfg),
+                       GridVoxelGNNDiscriminator(cfg), cuda_device)
+    Lg = Ld = 4
+    assert got == (0, 0, 0, cfg.N_CRITIC * (Lg + 3 * Ld) + Lg + Ld)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conv", ["GATCONV", "GATV2CONV"])
+def test_edge_pack_step_runs_on_the_card(conv, cuda_device):
+    """A packed edge-list batch at the JAX default bf16: finite, no layer-kernel launch."""
+    from building_gan_torch.data.batching import pack_graphs
+    from building_gan_torch.models.discriminator import VoxelGNNDiscriminator
+    from building_gan_torch.models.generator import VoxelGNNGenerator
+
+    cfg = _tiny_cfg(LAYOUT="edges", GENERATOR_CONV_TYPE=conv, DISCRIMINATOR_CONV_TYPE=conv,
+                    PACK_GRAPHS=4, PACK_LOCAL_NODES=256, PACK_LOCAL_EDGES=2048,
+                    PACK_VOXEL_NODES=2048, PACK_VOXEL_EDGES=16384)
+    samples = [process_building(*generate_building(1000 + i), cfg, str(i)) for i in range(4)]
+    batch = pack_graphs(samples, cfg)[0].to(cuda_device)
+    torch.manual_seed(0)
+    _, got = _one_step(cfg, batch, VoxelGNNGenerator(cfg), VoxelGNNDiscriminator(cfg), cuda_device)
+    Lg = Ld = 4
+    assert got == (0, 0, 0, cfg.N_CRITIC * (Lg + 3 * Ld) + Lg + Ld)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bce", "batch_level_matching", "batch_level_graphnorm",
+                                  "transformer"])
+def test_mode_steps_launch_as_expected(mode, cuda_device):
+    """The other training modes on the card at bf16: the BCE step fuses every critic pass
+    (no penalty, so no plain pass and no dropout-byte launch); batch-level matching keeps
+    both models fused; batch-level GraphNorm runs both plain; the transformer generator
+    runs plain (two dropout sites a block) against the fused critic."""
+    from building_gan_torch.models.transformer import GridTransformerGenerator
+
+    cfg = _tiny_cfg(**{"bce": {"USE_WGANGP": False},
+                       "batch_level_matching": {"BATCH_LEVEL_MATCHING": True},
+                       "batch_level_graphnorm": {"BATCH_LEVEL_GRAPHNORM": True},
+                       "transformer": {"GENERATOR_ARCH": "transformer"}}[mode])
+    G = GridTransformerGenerator if mode == "transformer" else GridVoxelGNNGenerator
+    torch.manual_seed(0)
+    metrics, got = _one_step(cfg, _grid_batch(cfg, cuda_device), G(cfg),
+                             GridVoxelGNNDiscriminator(cfg), cuda_device)
+    n, Lg, Ld, T = cfg.N_CRITIC, 4, 4, 2 * cfg.TRANSFORMER_LAYERS
+    want = {
+        "bce": (0, n * (Lg + 2 * Ld) + Lg + Ld, n * 2 * Ld + Ld + Lg, 0),
+        "batch_level_matching": (0, n * (Lg + 2 * Ld) + Lg + Ld, n * 2 * Ld + Ld + Lg, n * Ld),
+        "batch_level_graphnorm": (0, 0, 0, n * (Lg + 3 * Ld) + Lg + Ld),
+        "transformer": (0, n * 2 * Ld + Ld, n * 2 * Ld + Ld, (n + 1) * T + n * Ld),
+    }[mode]
+    assert got == want
+    if mode == "bce":
+        assert float(metrics["d_loss"]) > 0 and float(metrics["g_loss_adv"]) > 0
+
+
 def _tiny_trainer(tmp_path, dev, **kw):
     from building_gan_torch.data import write_dataset
     from building_gan_torch.data.pipeline import GraphDataLoaders

@@ -7,13 +7,14 @@ small_cfg's packs:
 - ``pack_graphs`` / ``stack_packs`` / ``null_like``: every array bit-equal to
   the JAX package's, and a building over a budget raises;
 - the segment ops (an empty and a fully masked segment included),
-  ``gat_aggregate`` and the per-graph type-matched pooling;
+  ``gat_aggregate`` and the type-matched pooling, per graph and over the
+  whole pack (``batch_level``, quirk Q1);
 - the four edge convs, ``GraphNorm`` and ``HourglassGNN``;
 - both edge models for all four convs, deterministic and with dropout (the
   port's Philox masks given to the flax side);
-- the GATCONV edge models (what ``--layout edges`` trains by default) at the
-  JAX default COMPUTE_DTYPE bfloat16, and their critic loss with its penalty
-  at GP_DTYPE "compute" and "float32";
+- the edge models of all four convs at the JAX default COMPUTE_DTYPE
+  bfloat16 (what ``--layout edges`` trains at), and their critic loss with its
+  penalty at GP_DTYPE "compute" and "float32";
 - ``generator_loss``, ``discriminator_loss`` with the gradient penalty (and
   the critic's parameter gradients through its double backward: the edge
   softmax's shift by the segment max carries no gradient in the port) and
@@ -206,8 +207,10 @@ def test_type_matched_pooling_matches_jax(packs):
     want = jpool.type_matched_pooling(jnp.asarray(lx), *(jnp.asarray(getattr(jp, a)) for a in args), G)
     got = tpool.type_matched_pooling(t(lx), *(getattr(tp, a) for a in args), G)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="batch-level"):
-        tpool.type_matched_pooling(t(lx), *(getattr(tp, a) for a in args), G, batch_level=True)
+    want = jpool.type_matched_pooling(jnp.asarray(lx), *(jnp.asarray(getattr(jp, a)) for a in args), G,
+                                      batch_level=True)
+    got = tpool.type_matched_pooling(t(lx), *(getattr(tp, a) for a in args), G, batch_level=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
 # ---------------------------------------------------------------------------
@@ -418,12 +421,13 @@ def test_losses_and_metrics_on_a_packed_batch_match_jax(edge_models):
         np.testing.assert_allclose(got_m[k].item(), float(want_m[k]), rtol=1e-6, err_msg=k)
 
 
-@pytest.fixture(scope="module")
-def edge_bf16(packs, edge_cfg):
-    """The GATCONV edge models at the JAX default bf16 on the first pack: the JAX results
+@pytest.fixture(scope="module", params=CONVS)
+def edge_bf16(request, packs, edge_cfg):
+    """One conv's edge models at the JAX default bf16 on the first pack: the JAX results
     (bf16, and the f32 clones on the same params) and the port's models at bf16 and f32."""
-    cfg = edge_cfg.replace(COMPUTE_DTYPE="bfloat16", GENERATOR_CONV_TYPE="GATCONV",
-                           DISCRIMINATOR_CONV_TYPE="GATCONV")
+    conv = request.param
+    cfg = edge_cfg.replace(COMPUTE_DTYPE="bfloat16", GENERATOR_CONV_TYPE=conv,
+                           DISCRIMINATOR_CONV_TYPE=conv)
     jp = packs[0][0]
     nv = jp.voxel_x.shape[0]
     rng = np.random.default_rng(40)

@@ -9,7 +9,8 @@
 - ``grid_compatible``, ``stack_grid_batches`` and ``null_like`` against JAX.
 - ``GraphDataLoaders`` at ``LAYOUT="edges"``: ``PackedBatch``es equal to
   the JAX package's packs, in the same order, unstacked and two a group.
-- ``prefetch`` hands a producer's exception to the consumer; grid buckets raise.
+- ``prefetch`` hands a producer's exception to the consumer.  (Grid buckets:
+  tests/test_torch_buckets.py.)
 
 Everything here is integer bookkeeping or a copy of float32 arrays, so every
 comparison is exact (tolerance 0).
@@ -172,17 +173,6 @@ def test_prefetch_hands_on_the_producers_error():
             got.append(item)
     assert got == [1, 2]
     assert list(tpipe.prefetch(iter(range(5)), size=1)) == list(range(5))
-
-
-@pytest.mark.parametrize("override,match", [
-    pytest.param({"GRID_BUCKETS": ((6, 6, 6), (10, 8, 8))}, "GRID_BUCKETS",
-                 id="override1-GRID_BUCKETS"),
-])
-def test_loaders_refuse_what_the_port_lacks(override, match, dataset):
-    _, npz = dataset
-    _, tcfg = _loader_cfgs(npz, 1)
-    with pytest.raises(NotImplementedError, match=match):
-        tpipe.GraphDataLoaders(tcfg.replace(**override))
 
 
 @pytest.mark.parametrize("groups", [None, 2], ids=["packs", "stacked2"])

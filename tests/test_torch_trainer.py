@@ -375,11 +375,7 @@ def test_cli_trains_and_tests_edges_and_other_convs(flags, cli_data, tiny_cli, t
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--generator-arch", "transformer"], "Queue A item 9"),
     (["--mesh-data", "2"], "Queue A item 6"),
-    (["--batch-level-matching"], "Queue A item 9"),
-    (["--batch-level-graphnorm"], "Queue A item 9"),
-    (["--grid-buckets", "6x6x6,10x8x8"], "Queue A item 9"),
 ], ids=lambda v: v if isinstance(v, str) else v[0])
 def test_cli_refuses_what_the_port_lacks(flags, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
