@@ -1,4 +1,5 @@
-"""Command-line entry points of the port: synth / preprocess / train / test.
+"""Command-line entry points of the port: synth / preprocess / ingest / analyze / train /
+sanity / viz / test.
 
 Port of ``building_gan_tpu/cli/main.py``: every entry point takes flags
 named after the configuration fields, with the configuration's defaults.
@@ -7,10 +8,22 @@ trainer runs on the card unless asked for the CPU.
 
     python -m building_gan_torch.cli.main synth --data-path data/raw --num 100
     python -m building_gan_torch.cli.main preprocess --data-path data/raw --save-data-path data/npz
+    python -m building_gan_torch.cli.main ingest --src ref/processed --dst data/npz
+    python -m building_gan_torch.cli.main analyze --data-path data/raw
     python -m building_gan_torch.cli.main train --save-data-path data/npz --log-dir runs/a \\
         --epochs 1000
+    python -m building_gan_torch.cli.main sanity --save-data-path data/npz --epochs 5000
+    python -m building_gan_torch.cli.main viz --data-path data/raw --num 6 --out-dir viz_out
     python -m building_gan_torch.cli.main test --save-data-path data/npz --log-dir runs/a
 
+``ingest`` converts the reference's processed ``.pt`` pairs to NPZ (without
+the reference package), ``analyze`` prints the raw dataset's statistics and
+checks its FAR invariant, ``sanity`` is the reference's single-building
+overfit harness (``Configuration(sanity_checking=True)``: building
+``DATA_POINT``, one slot, no checkpoint, the best epoch's image in the
+log), ``viz`` renders raw buildings to PNGs, and ``test`` prints the test
+split's scores and then renders ``--num-samples-to-viz`` test buildings (10,
+as in the JAX package; 0 renders none).  Renders need matplotlib and Pillow.
 ``--layout edges`` trains and tests on the packed edge-list layout (the
 ``--pack-*`` budgets), ``--conv-type`` picks the generator's and the
 critic's conv (GATCONV, the default, is the one with fused CUDA kernels on
@@ -24,10 +37,9 @@ its smallest fitting grid shape.
 ``COMPUTE_DTYPE`` defaults to bfloat16 (f32 parameters, bf16 activations), as
 in the JAX package; ``--compute-dtype float32`` computes in f32.  A checkpoint
 holds f32 parameters at either dtype.  ``--mesh-data`` above 1 (data
-parallelism) is not ported yet and raises, naming ROADMAP Queue A item 6;
-``ingest``, ``analyze``, ``viz`` and ``sanity`` wait for Queue A item 8.  ``--use-pallas``, ``--device-resident``
-and ``--pack-gemms`` schedule TPU work in the JAX package; here they are
-accepted and change nothing.
+parallelism) is not ported yet and raises, naming ROADMAP Queue A item 6.
+``--use-pallas``, ``--device-resident`` and ``--pack-gemms`` schedule TPU work
+in the JAX package; here they are accepted and change nothing.
 """
 
 from __future__ import annotations
@@ -151,7 +163,22 @@ def cmd_preprocess(args):
     print(f"processed {n} buildings in {dt:.1f}s ({n / max(dt, 1e-9):.2f} it/s)")
 
 
-def _make_trainer(args):
+def cmd_ingest(args):
+    """Convert the reference's processed ``.pt`` dataset into the NPZ layout
+    (reference `data.py:457-461` torch.save pairs -> GraphDataset-loadable)."""
+    from ..data.ingest import convert_reference_processed
+
+    n = convert_reference_processed(args.src, args.dst, compress=args.compress)
+    print(f"converted {n} buildings: {args.src} -> {args.dst}")
+
+
+def cmd_analyze(args):
+    from ..utils.analyze import analyze_dataset
+
+    analyze_dataset(_build_config(args))
+
+
+def _make_trainer(args, sanity: bool = False):
     import torch
 
     from ..data.pipeline import GraphDataLoaders
@@ -162,6 +189,8 @@ def _make_trainer(args):
     from ..train.trainer import Trainer
 
     cfg = _build_config(args)
+    if sanity:  # as Configuration(sanity_checking=True): one building (DATA_POINT), one slot
+        cfg = cfg.replace(SANITY_CHECKING=True)
     _not_ported(cfg)
     cfg.require_ported_dtype(f"building_gan_torch {args.cmd}")  # before the data loads
     loaders = GraphDataLoaders(cfg)
@@ -178,8 +207,19 @@ def cmd_train(args):
     _make_trainer(args).train()
 
 
+def cmd_sanity(args):
+    _make_trainer(args, sanity=True).train()
+
+
+def cmd_viz(args):
+    from ..viz.raw import render_raw_samples
+
+    paths = render_raw_samples(_build_config(args), list(range(args.num)), args.out_dir)
+    print("\n".join(paths))
+
+
 def cmd_test(args):
-    _make_trainer(args).test(num_samples_to_viz=args.num_samples_to_viz)
+    _make_trainer(args).test(num_samples_to_viz=args.num_samples_to_viz, show=args.show)
 
 
 def main(argv=None):
@@ -196,13 +236,34 @@ def main(argv=None):
     _add_config_overrides(p)
     p.set_defaults(fn=cmd_preprocess)
 
+    p = sub.add_parser("ingest", help="reference processed .pt pairs -> NPZ dataset")
+    p.add_argument("--src", required=True, help="directory of {num}_local.pt/{num}_voxel.pt")
+    p.add_argument("--dst", required=True, help="output directory for NPZ pairs")
+    p.add_argument("--compress", action="store_true")
+    p.set_defaults(fn=cmd_ingest)
+
+    p = sub.add_parser("analyze", help="dataset statistics + FAR invariant check")
+    _add_config_overrides(p)
+    p.set_defaults(fn=cmd_analyze)
+
     p = sub.add_parser("train", help="full training run")
     _add_config_overrides(p)
     p.set_defaults(fn=cmd_train)
 
-    p = sub.add_parser("test", help="test-split metrics")
-    p.add_argument("--num-samples-to-viz", type=int, default=0,
-                   help="test samples to render (not ported yet: ROADMAP Queue A item 8)")
+    p = sub.add_parser("sanity", help="single-datum overfit harness")
+    _add_config_overrides(p)
+    p.set_defaults(fn=cmd_sanity)
+
+    p = sub.add_parser("viz", help="render raw buildings from JSON (data-visualization notebook)")
+    p.add_argument("--num", type=int, default=6)
+    p.add_argument("--out-dir", default="viz_out")
+    _add_config_overrides(p)
+    p.set_defaults(fn=cmd_viz)
+
+    p = sub.add_parser("test", help="test-split metrics + qualitative eval")
+    p.add_argument("--num-samples-to-viz", type=int, default=10,
+                   help="test samples to render (needs matplotlib and Pillow; 0 renders none)")
+    p.add_argument("--show", action="store_true")
     _add_config_overrides(p)
     p.set_defaults(fn=cmd_test)
 

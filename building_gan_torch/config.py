@@ -206,6 +206,10 @@ class Configuration:
         return _TORCH_DTYPES[self.PARAM_DTYPE]
 
     @property
+    def SPLIT_RATIOS(self) -> Tuple[float, float, float]:
+        return (self.TRAIN_SPLIT_RATIO, self.VALIDATION_SPLIT_RATIO, self.TEST_SPLIT_RATIO)
+
+    @property
     def GLOBAL_GRAPH_DATA_PATH(self) -> str:
         return os.path.join(self.DATA_PATH, "global_graph_data")
 
@@ -230,3 +234,11 @@ class Configuration:
 
     def replace(self, **kwargs) -> "Configuration":
         return dataclasses.replace(self, **kwargs)
+
+    @staticmethod
+    def set_seed(seed: int | None = None) -> None:
+        """Seed the host RNGs and torch's default generator (reference
+        ``config.py:137-157``; ``utils/profiling.py::set_seed``), 777 by default."""
+        from .utils.profiling import set_seed as _set_seed
+
+        _set_seed(777 if seed is None else seed)

@@ -12,7 +12,8 @@ the reference training runtime (``building_gan/src/trainer.py:580-806``):
 - resume from ``log_dir`` on construction: the latest checkpoint when it is
   ahead of the best-gated one, with the quirk-Q11 ``epoch_start`` patch on
   non-improving epochs;
-- ``test()`` prints the test split's scores.
+- the best epoch's qualitative image (``viz/render.py``) in the scalar log;
+- ``test()`` prints the test split's scores, then renders test samples.
 
 Per-batch metrics stay on the device until the epoch ends, then come to the
 host in one fetch; with ``GRID_BUCKETS`` an epoch's batches come in several
@@ -23,8 +24,7 @@ the trainer's device, seeded from ``(SEED, epoch)`` (validation from
 draws from an epoch on what an uninterrupted run draws there.  Torch cannot
 replay JAX's threefry, so the streams differ from the JAX package's.
 
-Not ported: the mesh branches (ROADMAP Queue A item 6) and the best-epoch
-image (``_render_sample``, with viz: Queue A item 8).  The scalar log is
+Not ported: the mesh branches (ROADMAP Queue A item 6).  The scalar log is
 TensorBoard's when tensorboardX is installed, JSON lines otherwise
 (``train/writer.py``).
 """
@@ -33,8 +33,7 @@ from __future__ import annotations
 
 import os
 import time
-from functools import wraps
-from typing import Callable, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,6 +43,7 @@ from ..config import PROGRAM_NAMES, Configuration
 from ..data.pipeline import GraphDataLoaders, prefetch
 from ..models import fast_infer
 from ..ops.rng import normal_box_muller
+from ..utils.profiling import runtime_calculator
 from . import metrics as M
 from .state import cosine_lr, create_train_state, set_g_lr
 from .step import make_eval_step, make_train_step
@@ -52,19 +52,6 @@ from .writer import make_writer
 TRAIN_KEYS = ("g_loss", "d_loss", "f1", "precision", "recall", "accuracy")
 EVAL_KEYS = ("g_loss", "f1", "precision", "recall", "accuracy")
 VALIDATION_SEED_OFFSET, TEST_SEED_OFFSET = 999, 31337
-
-
-def runtime_calculator(func: Callable) -> Callable:
-    """Wall-clock decorator (reference trainer.py:31-50)."""
-
-    @wraps(func)
-    def wrapper(*args, **kwargs):
-        start = time.time()
-        result = func(*args, **kwargs)
-        print(f"The function {func.__name__} took {time.time() - start} seconds to run.")
-        return result
-
-    return wrapper
 
 
 def stream_generator(seed: int, epoch: Optional[int], device) -> torch.Generator:
@@ -281,6 +268,9 @@ class Trainer:
                         "accuracy_score_train": tr["accuracy"],
                         "accuracy_score_validation": va["accuracy"],
                     })
+                fig = self._render_sample(epoch)
+                if fig is not None:
+                    writer.add_image(f"epoch_{epoch}", fig, epoch)
             elif not self.sanity_checking and ckpt.exists(self.log_dir):
                 ckpt.patch_epoch_start(self.log_dir, epoch)  # quirk Q11
 
@@ -296,6 +286,16 @@ class Trainer:
         writer.close()
 
     # ------------------------------------------------------------------
+    def _render_sample(self, epoch: int):
+        """The best epoch's qualitative image (CHW uint8) for the scalar log, or None."""
+        try:
+            from ..viz.render import evaluate_qualitatively
+
+            return evaluate_qualitatively(self, epoch=epoch, num_samples_to_viz=1, to_tensor=True)
+        except Exception as e:  # rendering must never kill training
+            print(f"render skipped: {e}")
+            return None
+
     @torch.no_grad()
     def generate(self, batch, generator: torch.Generator):
         """One generator forward at eval time -> (logits, label_hard, label_soft).
@@ -315,11 +315,9 @@ class Trainer:
                                 generator=generator)
 
     @runtime_calculator
-    def test(self, num_samples_to_viz: int = 0) -> dict:
-        """Test-split scores (reference trainer.py:749-806): printed, and returned."""
-        if num_samples_to_viz > 0:
-            raise NotImplementedError("test-sample rendering (viz) is not ported yet "
-                                      "(ROADMAP Queue A item 8); use num_samples_to_viz=0")
+    def test(self, num_samples_to_viz: int = 0, show: bool = False) -> dict:
+        """Test-split scores (reference trainer.py:749-806): printed, and returned; then
+        ``num_samples_to_viz`` test buildings rendered (``viz/render.py``, best-of-1)."""
         loader = self.dataloaders.test_dataloader
         if loader is None:
             raise ValueError("no test split (sanity mode, or too few buildings)")
@@ -335,4 +333,10 @@ class Trainer:
             accuracy_score_test: {out['accuracy']}
             """
         )
+        if num_samples_to_viz > 0:
+            from ..viz.render import evaluate_qualitatively
+
+            strip = evaluate_qualitatively(self, epoch=None, num_samples_to_viz=num_samples_to_viz,
+                                           to_tensor=True, use_test_dataset=True, show=show)
+            print(f"rendered {num_samples_to_viz} test samples: a {tuple(strip.shape)} CHW uint8 strip")
         return out

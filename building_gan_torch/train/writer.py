@@ -2,10 +2,12 @@
 
 ``make_writer(log_dir)`` gives ``tensorboardX.SummaryWriter`` where the
 package imports, else a ``JsonlScalarWriter``: the same calls
-(``add_text``, ``add_scalar``, ``add_histogram_raw``, ``close``), each
-appended as one JSON object a line to ``log_dir/scalars.jsonl``, so a run on
-a machine without tensorboardX still records its curves.  A resumed run
-appends to the same file.
+(``add_text``, ``add_scalar``, ``add_histogram_raw``, ``add_image``,
+``close``), each appended as one JSON object a line to
+``log_dir/scalars.jsonl``, so a run on a machine without tensorboardX still
+records its curves.  An image (CHW uint8, the trainer's best-epoch render)
+is saved as ``log_dir/images/{tag}_{step}.npy`` beside its record, which
+keeps Pillow out of the writer.  A resumed run appends to the same file.
 """
 
 from __future__ import annotations
@@ -13,7 +15,10 @@ from __future__ import annotations
 import json
 import os
 
+import numpy as np
+
 JSONL_FILE = "scalars.jsonl"
+IMAGE_DIR = "images"
 
 
 class JsonlScalarWriter:
@@ -21,6 +26,7 @@ class JsonlScalarWriter:
 
     def __init__(self, log_dir: str):
         os.makedirs(log_dir, exist_ok=True)
+        self.log_dir = log_dir
         self.path = os.path.join(log_dir, JSONL_FILE)
         self._f = open(self.path, "a")
 
@@ -41,6 +47,16 @@ class JsonlScalarWriter:
                    "max": float(max), "num": int(num), "sum": float(sum),
                    "sum_squares": float(sum_squares), "bucket_limits": list(bucket_limits),
                    "bucket_counts": list(bucket_counts)})
+
+    def add_image(self, tag: str, img_tensor, global_step=None) -> None:
+        """Save a CHW uint8 image as ``images/{tag}_{step}.npy`` (the record's ``file``,
+        relative to the log dir)."""
+        img = np.asarray(img_tensor)
+        name = os.path.join(IMAGE_DIR, f"{tag}_{global_step}.npy")
+        os.makedirs(os.path.join(self.log_dir, IMAGE_DIR), exist_ok=True)
+        np.save(os.path.join(self.log_dir, name), img)
+        self._put({"kind": "image", "tag": tag, "step": global_step, "file": name,
+                   "shape": list(img.shape)})
 
     def close(self) -> None:
         self._f.close()

@@ -66,7 +66,8 @@ Phases, one short output line or a few each:
   9. the trainer: 256 real-scale buildings as raw JSON, then the CLI in
      subprocesses on the card (preprocess; train 2 epochs at the config of
      record with a latest checkpoint each epoch; train again to 3 epochs,
-     which resumes from the latest checkpoint; test), once with
+     which resumes from the latest checkpoint; test, rendering one test
+     building where matplotlib and Pillow import), once with
      --compute-dtype float32 and once at the defaults (bf16); checkpoints,
      metas and scalar tags checked; then in process a Trainer on the f32 log
      dir: one eval step and Trainer.generate with their kernel launches
@@ -107,9 +108,23 @@ Phases, one short output line or a few each:
      mixed sizes from 8 threads routed by size, one by name, a weight swap
      mid-stream (none dropped, later requests on the new version), alone ==
      batched, one hourglass launch a batch, p50 / p99 a server;
-  12. the run's seconds and a {"kernels": [...]} line: each kernel at f32 and
+  12. the reference's other surfaces on phase 9's buildings: (a) the CLI's
+     sanity --epochs 20 in process at the config of record and f32 (building
+     DATA_POINT in one slot, K=1: 150 / 80 / 30 launches a step, losses
+     finite, no checkpoint, the reference tags, the best epoch's image, or
+     "render skipped" where matplotlib or Pillow is missing); (b) at that one
+     slot the hourglass (f32, bf16) and both training stacks (f32, bf16) layer
+     by layer by the f64 rules, timed against their bounds, and 3 f32 steps;
+     (c) best_of_k, 3 restarts, on a Trainer on phase 9's f32 log dir: one
+     hourglass launch a restart, the F1 kept the restarts' best; where
+     matplotlib and Pillow import, a rendered CHW uint8 strip; (d) analyze on
+     the raw JSON (the FAR invariant) and ingest of 4 buildings written as the
+     reference's .pt pairs, bit-equal to their NPZ files; (e) the bf16 step's
+     roofline share (utils/roofline.py, the H100's published peaks) at phase
+     7's batch;
+  13. the run's seconds and a {"kernels": [...]} line: each kernel at f32 and
      at bf16 storage ("dtype"), launches from that dtype's main path;
-  13. the server stopped, every thread joined, and the result line last.
+  14. the server stopped, every thread joined, and the result line last.
 
 Every kernel is held against its plain version run in float64, the gradients
 too, by two rules: its max abs error within 4x the plain float32 version's own,
@@ -1287,11 +1302,17 @@ def cli_flow(common, run, tag, card):
     if not resumed or sorted(epochs) != [3] or step3 != step2 + step2 // 2:
         raise AssertionError("the resumed run did not continue from the latest checkpoint")
 
-    out, s_test = run_cli(["test"] + common, "test")
+    viz = viz_flags(1 if tag == "float32" else 0, f"trainer ({tag})")
+    out, s_test = run_cli(["test"] + viz + common, "test")
     test = {k: float(v) for k, v in re.findall(r"(\w+_test): (\S+)", out)}
     say(f"trainer ({tag}): CLI test {s_test:.1f} s: " + ", ".join(f"{k} {v:.4f}" for k, v in test.items()))
     if set(test) != set(TEST_METRICS) or not all(np.isfinite(v) for v in test.values()):
         raise AssertionError(f"test printed {test}")
+    rendered = [ln for ln in out.splitlines() if ln.startswith("rendered ")]
+    if viz[1] != "0":
+        say(f"trainer ({tag}): CLI test: {rendered[0] if rendered else 'no render line'}")
+        if not rendered:
+            raise AssertionError("test --num-samples-to-viz 1 rendered nothing")
     for f in ("_train_each_epoch", "_validate_each_epoch"):
         ts = [x for g, x in times if g == f]
         say(f"trainer ({tag}): {f} seconds (CLI runs, epochs 1-3, the first pays the set-up): "
@@ -1437,6 +1458,9 @@ REGISTRY_CONVS = ("GATV2CONV", "GCNCONV", "GRAPHCONV")
 EDGE_CONVS = ("GATCONV",) + REGISTRY_CONVS
 REGISTRY_STEPS, PARITY_BUILDINGS, REGISTRY_REQUESTS, REGISTRY_CLIENTS = 2, 16, 16, 4
 PARITY_RTOL, PARITY_ATOL = 5e-3, 1e-3  # grid vs edge, the JAX package's (tests/test_grid.py)
+
+
+FUSED_STEP = (0, 150, 80, 30)  # a fused WGAN-GP step's launches at the config of record
 
 
 def layer_launches():
@@ -1674,7 +1698,8 @@ def registry_cli(grid_flags, root, card):
         if sorted(epochs) != [1] or not all(np.isfinite(v) for v in epochs[1].values()):
             raise AssertionError(f"CLI train {tag}: epochs {epochs}")
         if test:
-            out, s_test = run_cli(["test", "--log-dir", run] + flags, f"test {tag}")
+            out, s_test = run_cli(["test", "--log-dir", run] + viz_flags(0, f"cli {tag}") + flags,
+                                  f"test {tag}")
             got = {k: float(v) for k, v in re.findall(r"(\w+_test): (\S+)", out)}
             say(f"cli {tag}: test {s_test:.1f} s: " + ", ".join(f"{k} {v:.4f}" for k, v in got.items()))
             if set(got) != set(TEST_METRICS) or not all(np.isfinite(v) for v in got.values()):
@@ -1797,11 +1822,12 @@ def transformer_steps(cfg_t, batch_t, dev, card):
 
 
 def bucket_kernels(tag, batch, dev, card):
-    """At one bucket's shapes, on its packed slots: the hourglass at f32 and bf16 against its
-    plain version by the f64 rules (phase 3, 6b), the cluster size it chooses, and its time;
-    the generator (Cmax 128) and critic (Cmax 64) training stacks at f32 and bf16 each layer
-    alone on the kernel's own activations, the stack equal to the chain (``hold_chain``),
-    and the generator stack's forward and backward timed.  Raises on a failure."""
+    """At one batch's shapes (a bucket's packed slots, or phase 12's one slot): the hourglass at
+    f32 and bf16 against its plain version by the f64 rules (phase 3, 6b), the cluster size it
+    chooses, and its time at each; the generator (Cmax 128) and critic (Cmax 64) training
+    stacks at f32 and bf16 each layer alone on the kernel's own activations, the stack equal
+    to the chain (``hold_chain``), and the generator stack's forward and backward timed.
+    Raises on a failure."""
     from building_gan_torch.ops import dropout as drop
     from building_gan_torch.ops import gat_train as gt
     from building_gan_torch.ops import hourglass as hg
@@ -1813,7 +1839,7 @@ def bucket_kernels(tag, batch, dev, card):
     planes = gt.build_planes(batch.mask, batch.gid, grid)
     (Ws, atts, vecs), chans = perturbed_stack(128, 7, gen, dev)
     x = torch.randn((B,) + tuple(grid) + (128,), generator=gen).to(dev)
-    mask, gid = batch.mask.contiguous(), batch.gid.contiguous()
+    mask, gid = batch.mask.contiguous(), None if batch.gid is None else batch.gid.contiguous()
     for dt in (torch.float32, BF16):
         args = (x.to(dt), mask, Ws, atts, vecs, chans, gid, K)
         with torch.no_grad():
@@ -1827,13 +1853,13 @@ def bucket_kernels(tag, batch, dev, card):
         if not ok:
             raise AssertionError(f"{tag}: the hourglass kernel disagrees with its plain version at {dt}")
         del got, want, want64
-        if dt == torch.float32:
-            with torch.no_grad():
-                hg.hourglass_cuda(*args)
-                ms = timed_ms(lambda: hg.hourglass_cuda(*args), 10)
-            bound = bound_of(B, R, chans, 128, K)
-            say(f"{tag}: hourglass kernel {ms:.4f} ms (CUDA events, 10 launches), bound {bound[0]:.4f} ms "
-                f"({bound[1]}), cluster {hg.cluster_size(B, R, 128, K, chans)} CTAs a slot on {card}")
+        with torch.no_grad():
+            hg.hourglass_cuda(*args)
+            ms = timed_ms(lambda: hg.hourglass_cuda(*args), 10)
+        bound = bound_of(B, R, chans, 128, K, act_bytes=4 if dt == torch.float32 else 2)
+        say(f"{tag}: hourglass kernel {str(dt)[6:]} {ms:.4f} ms (CUDA events, 10 launches), bound "
+            f"{bound[0]:.4f} ms ({bound[1]}), cluster {hg.cluster_size(B, R, 128, K, chans)} CTAs a "
+            f"slot on {card}")
     for name, hidden, repeat in (("generator", 128, 7), ("critic", 64, 3)):
         weights, tchans = perturbed_stack(hidden, repeat, gen, dev)
         keys = drop.draw_keys(len(tchans), kgen)
@@ -1906,7 +1932,7 @@ def bucket_phase(cfg_t, grid_flags, root, dev, card):
         batch = b.to(dev)
         bucket_kernels(tag, batch, dev, card)
         counted_steps(cfg.replace(COMPUTE_DTYPE="bfloat16"), batch, dev, 1, f"bucket {shape} (bfloat16)",
-                      card, (0, 150, 80, 30))
+                      card, FUSED_STEP)
         del batch
         torch.cuda.empty_cache()
     flags = grid_flags + ["--grid-buckets", ",".join("x".join(map(str, s)) for s in BUCKETS)]
@@ -1917,7 +1943,8 @@ def bucket_phase(cfg_t, grid_flags, root, dev, card):
         + ", ".join(f"{k} {v:.4f}" for k, v in epochs.get(1, {}).items()) + f" on {card}")
     if sorted(epochs) != [1] or not all(np.isfinite(v) for v in epochs[1].values()):
         raise AssertionError(f"CLI train --grid-buckets: epochs {epochs}")
-    out, s_test = run_cli(["test", "--log-dir", run] + flags, "test --grid-buckets")
+    out, s_test = run_cli(["test", "--log-dir", run] + viz_flags(0, "cli --grid-buckets") + flags,
+                          "test --grid-buckets")
     got = {k: float(v) for k, v in re.findall(r"(\w+_test): (\S+)", out)}
     say(f"cli --grid-buckets: test {s_test:.1f} s: " + ", ".join(f"{k} {v:.4f}" for k, v in got.items()))
     if set(got) != set(TEST_METRICS) or not all(np.isfinite(v) for v in got.values()):
@@ -2068,6 +2095,315 @@ def modes_phase(cfg_t, batch_t, grid_flags, root, dev, card):
     say(f"phase 11e: router {time.perf_counter() - t:.1f} s")
     say(f"phase: modes, transformer, buckets and router {time.perf_counter() - t_phase:.1f} s")
     return threads
+
+
+# Phase 12: the reference's other surfaces: the sanity harness and the kernels on one slot,
+# best-of-k renders on the card, analyze and ingest, and the bf16 step's roofline share.
+SANITY_EPOCHS, RENDER_RESTARTS, INGEST_BUILDINGS = 20, 3, 4
+
+
+def have_renderer() -> bool:
+    """Whether matplotlib and Pillow import here (the renders need both)."""
+    try:
+        import matplotlib  # noqa: F401
+        import PIL  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def viz_flags(n: int, label: str):
+    """``test``'s --num-samples-to-viz: n where matplotlib and Pillow import, else 0; says which."""
+    m = n if have_renderer() else 0
+    say(f"{label}: test --num-samples-to-viz {m}"
+        + ("" if m == n else " (matplotlib or Pillow does not import here)"))
+    return ["--num-samples-to-viz", str(m)]
+
+
+def cli_in_process(args):
+    """``building_gan_torch.cli.main(args)`` in this process, its standard output captured;
+    -> (output, seconds).  The output is printed again if it raises."""
+    import contextlib
+    import io
+
+    from building_gan_torch.cli import main as cli
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(args)
+    except BaseException:
+        say(buf.getvalue()[-3000:])
+        raise
+    return buf.getvalue(), time.perf_counter() - t
+
+
+def sanity_cli(npz, local_nodes, root, dev, card):
+    """(a) ``sanity --epochs 20`` through the CLI in this process (its kernel launches counted)
+    on phase 9's processed buildings at the config of record and f32: building DATA_POINT in
+    one slot (GRID_BATCH 1, K=1), one step an epoch, each with the fused step's launches;
+    losses finite; no checkpoint; the reference tags logged; the best epoch's image recorded,
+    or "render skipped" printed where matplotlib or Pillow is missing (no hourglass launch
+    then)."""
+    import os
+
+    from building_gan_torch.checkpoint import ckpt
+    from building_gan_torch.train.writer import JSONL_FILE, read_jsonl
+
+    run = os.path.join(root, "run_sanity")
+    before = layer_launches()
+    out, seconds = cli_in_process(
+        ["sanity", "--save-data-path", npz, "--log-dir", run, "--device", dev.type,
+         "--compute-dtype", "float32", "--epochs", str(SANITY_EPOCHS), "--grid-local-nodes",
+         str(local_nodes)])
+    got = tuple(b - a for a, b in zip(before, layer_launches()))
+    epochs = epoch_lines(out)
+    renders = out.count("Best f1 score updated")
+    skipped = [ln for ln in out.splitlines() if ln.startswith("render skipped")]
+    # a render draws one train sample and (no validation split in sanity mode) one more
+    want = (0 if skipped else 2 * renders,) + tuple(SANITY_EPOCHS * v for v in FUSED_STEP[1:])
+    times = [float(x) for x in re.findall(r"function _train_each_epoch took ([\d.e-]+) seconds", out)]
+    last = epochs.get(SANITY_EPOCHS, {})
+    say(f"sanity: CLI sanity --epochs {SANITY_EPOCHS} {seconds:.1f} s in process: epoch 1 "
+        f"f1 {epochs.get(1, {}).get('f1_train', float('nan')):.4f}, epoch {SANITY_EPOCHS} f1 "
+        f"{last.get('f1_train', float('nan')):.4f} g_loss {last.get('g_loss', float('nan')):.4f} "
+        f"d_loss {last.get('d_loss', float('nan')):.4f}; {renders} best-epoch renders "
+        f"({len(skipped)} skipped{': ' + skipped[0][:120] if skipped else ''}); launches "
+        f"hourglass {got[0]}, training forward {got[1]}, backward {got[2]}, dropout bytes "
+        f"{got[3]} (expect {want}); train epoch s (median of 2-{SANITY_EPOCHS}) "
+        f"{float(np.median(times[1:])):.3f} on {card}")
+    if sorted(epochs) != list(range(1, SANITY_EPOCHS + 1)):
+        raise AssertionError(f"sanity ran epochs {sorted(epochs)}")
+    if not all(np.isfinite(v) for vals in epochs.values() for v in vals.values()):
+        raise AssertionError("a loss or score of the sanity run is not finite")
+    if got != want:
+        raise AssertionError(f"sanity: launches {got}, expected {want}")
+    if ckpt.exists(run) or os.path.exists(os.path.join(run, ckpt.LATEST_STATE_FILE)):
+        raise AssertionError("sanity mode wrote a checkpoint")
+    if os.path.exists(os.path.join(run, JSONL_FILE)):
+        records = read_jsonl(run)
+        tags = {(r["tag"], r["step"]) for r in records if r["kind"] == "scalar"}
+        missing = [t for t in REFERENCE_TAGS if (t, SANITY_EPOCHS) not in tags]
+        images = [r for r in records if r["kind"] == "image"]
+        shapes = [tuple(np.load(os.path.join(run, r["file"])).shape) for r in images]
+    else:  # tensorboardX's event file
+        blob = b"".join(open(os.path.join(run, f), "rb").read() for f in os.listdir(run)
+                        if f.startswith("events.out.tfevents"))
+        missing = [t for t in REFERENCE_TAGS if t.encode() not in blob]
+        shapes = [None] * sum(f"epoch_{e}".encode() in blob for e in epochs)
+    say(f"sanity: no checkpoint written; the reference tags logged; {len(shapes)} images "
+        f"recorded {shapes[:3]}")
+    if missing:
+        raise AssertionError(f"the sanity log lacks {missing[:5]}")
+    if len(shapes) != (0 if skipped else renders) or not (renders or skipped):
+        raise AssertionError(f"sanity: {len(shapes)} images for {renders} best epochs")
+
+
+def write_reference_pairs(dst, samples):
+    """Pickle each (local, voxel) as the reference pipeline does (data.py:457-461): stand-in
+    classes LocalGraphData / VoxelGraphData under ``src.data`` holding torch tensors under the
+    reference's attribute names (data.py:16-77).  The stand-ins are gone again when this
+    returns, so unpickling must resolve them without the reference package."""
+    import os
+    import types
+
+    names = ("src", "src.data")
+    saved = {k: sys.modules.pop(k) for k in names if k in sys.modules}
+    try:
+        mod = types.ModuleType("src.data")
+        sys.modules["src"], sys.modules["src.data"] = types.ModuleType("src"), mod
+        for name in ("LocalGraphData", "VoxelGraphData"):
+            cls = type(name, (), {})
+            cls.__module__, cls.__qualname__ = "src.data", name
+            setattr(mod, name, cls)
+        t = torch.as_tensor
+        for local, voxel in samples:
+            ref_l, ref_v = mod.LocalGraphData(), mod.VoxelGraphData()
+            ref_l.__dict__.update(
+                x=t(local.x), local_graph_types=t(local.types).long(),
+                local_graph_types_onehot=t(local.types_onehot),
+                local_graph_type_ratio_per_node=t(local.type_ratio_per_node),
+                edge_index=t(local.edge_index).long(), local_graph_floor_levels=t(local.floor_levels).long(),
+                local_graph_center=t(local.center), local_graph_type_ids=t(local.type_ids).long(),
+                site_area=t([local.site_area]), data_number=local.data_number)
+            ref_v.__dict__.update(
+                x=t(voxel.x), voxel_graph_types=t(voxel.types).long(),
+                voxel_graph_types_onehot=t(voxel.types_onehot), edge_index=t(voxel.edge_index).long(),
+                voxel_graph_floor_levels=t(voxel.floor_levels).long(),
+                voxel_graph_node_coordinate=t(voxel.coordinate),
+                voxel_graph_node_dimension=t(voxel.dimension), voxel_graph_location=t(voxel.location).long(),
+                voxel_graph_node_ratio=t(voxel.node_ratio), site_area=t([voxel.site_area]),
+                data_number=voxel.data_number)
+            torch.save(ref_l, os.path.join(dst, f"{local.data_number}_local.pt"))
+            torch.save(ref_v, os.path.join(dst, f"{local.data_number}_voxel.pt"))
+    finally:
+        for k in names:
+            sys.modules.pop(k, None)
+        sys.modules.update(saved)
+
+
+def analyze_and_ingest(raw, npz, root, card):
+    """(d) ``analyze`` on phase 9's raw JSON (the FAR invariant holds); ``ingest`` of the
+    first INGEST_BUILDINGS processed buildings written as the reference's ``.pt`` pairs gives
+    back their NPZ arrays bit for bit."""
+    import os
+
+    from building_gan_torch.config import Configuration
+    from building_gan_torch.data.preprocess import load_local, load_voxel
+
+    out, s_an = cli_in_process(["analyze", "--data-path", raw])
+    lines = out.strip().splitlines()
+    say(f"analyze: {s_an:.2f} s: " + "; ".join(ln.strip() for ln in lines[:3] + lines[-1:]))
+    if "FAR invariant       : OK" not in out:
+        raise AssertionError("analyze did not report the FAR invariant")
+    cfg = Configuration()
+    nums = sorted(f[: -len(cfg.LOCAL_DATA_SUFFIX)] for f in os.listdir(npz)
+                  if f.endswith(cfg.LOCAL_DATA_SUFFIX))[:INGEST_BUILDINGS]
+    files = [f"{n}{sfx}" for n in nums for sfx in (cfg.LOCAL_DATA_SUFFIX, cfg.VOXEL_DATA_SUFFIX)]
+    src, dst = os.path.join(root, "reference_pt"), os.path.join(root, "ingested")
+    os.makedirs(src)
+    write_reference_pairs(src, [(load_local(os.path.join(npz, f"{n}{cfg.LOCAL_DATA_SUFFIX}")),
+                                 load_voxel(os.path.join(npz, f"{n}{cfg.VOXEL_DATA_SUFFIX}")))
+                                for n in nums])
+    out, s_in = cli_in_process(["ingest", "--src", src, "--dst", dst])
+    differ = []
+    for f in files:
+        with np.load(os.path.join(npz, f)) as a, np.load(os.path.join(dst, f)) as b:
+            if sorted(a.files) != sorted(b.files):
+                differ.append((f, "keys"))
+            differ += [(f, k) for k in a.files
+                       if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])]
+    say(f"ingest: {s_in:.2f} s: {out.strip()}; {len(files)} NPZ files against phase 9's: "
+        f"{'bit-equal' if not differ else differ[:4]}")
+    if differ or sorted(os.listdir(dst)) != sorted(files):
+        raise AssertionError(f"ingest did not give back phase 9's arrays: {differ[:4]}")
+
+
+def render_phase(npz, local_nodes, run, dev, card):
+    """(c) ``best_of_k`` with RENDER_RESTARTS restarts on a Trainer built on phase 9's f32 log
+    dir: one hourglass launch a restart, the F1 kept the largest of the restarts' own, the
+    types those of the first restart reaching it; its device time; then, where matplotlib
+    and Pillow import, evaluate_qualitatively's strip of one test building (CHW uint8)."""
+    from building_gan_torch.config import Configuration
+    from building_gan_torch.data.pipeline import GraphDataLoaders
+    from building_gan_torch.models.grid_models import GridVoxelGNNDiscriminator, GridVoxelGNNGenerator
+    from building_gan_torch.ops import hourglass as hg
+    from building_gan_torch.train import metrics as M
+    from building_gan_torch.train.trainer import Trainer
+    from building_gan_torch.viz import render
+
+    cfg = Configuration(SAVE_DATA_PATH=npz, COMPUTE_DTYPE="float32", EPOCHS=3,
+                        GRID_SLOT_GRAPHS=TRAINER_SLOT_GRAPHS, GRID_LOCAL_NODES=local_nodes,
+                        GRID_BATCH=TRAINER_BATCH_IN_PROCESS)
+    torch.manual_seed(cfg.SEED)
+    trainer = Trainer(GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg),
+                      GraphDataLoaders(cfg), cfg, log_dir=run, device=dev)
+    local, voxel = trainer.dataloaders.validation_dataloader.samples[0]
+    outputs, generate = [], trainer.generate
+
+    def recorded(batch, generator):
+        out = generate(batch, generator)
+        outputs.append(out[1].argmax(-1)[0].clone())
+        return out
+
+    trainer.generate = recorded
+    h0 = hg.launches.value
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    types, f1 = render.best_of_k(trainer, local, voxel, iteration=RENDER_RESTARTS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = hg.launches.value - h0
+    trainer.generate = generate
+    loc = torch.as_tensor(voxel.location, device=dev).long()
+    y_true = torch.as_tensor(voxel.types, device=dev).long()
+    n = y_true.shape[0]
+    preds = [o[loc[:, 0], loc[:, 1], loc[:, 2]] for o in outputs]
+    f1s = [float(M.compute_metrics(y_true, p, torch.ones(n, device=dev), torch.ones(1, device=dev),
+                                   graph_id=torch.zeros(n, dtype=torch.long, device=dev))["f1"])
+           for p in preds]
+    first_best = f1s.index(max(f1s))
+    say(f"best_of_k: building {voxel.data_number} ({n} voxels), {RENDER_RESTARTS} restarts on "
+        f"phase 9's f32 weights: F1s {', '.join(f'{v:.4f}' for v in f1s)}, kept {f1:.4f}; "
+        f"hourglass launches {launches} (expect {RENDER_RESTARTS}); {ms:.2f} ms (host clock, "
+        f"synchronised; packing and the F1 syncs included) on {card}")
+    if launches != RENDER_RESTARTS or len(outputs) != RENDER_RESTARTS:
+        raise AssertionError(f"best_of_k launched the hourglass {launches} times")
+    if f1 != max(f1s) or not np.array_equal(types, preds[first_best].cpu().numpy()):
+        raise AssertionError(f"best_of_k kept F1 {f1}, not the restarts' best {max(f1s)}")
+    if not have_renderer():
+        say("render: matplotlib or Pillow does not import here: no figure drawn (the device "
+            "part above is checked either way)")
+        return
+    t = time.perf_counter()
+    strip = render.evaluate_qualitatively(trainer, epoch=None, num_samples_to_viz=1,
+                                          to_tensor=True, use_test_dataset=True)
+    say(f"render: evaluate_qualitatively, one test building: a {strip.shape} {strip.dtype} strip "
+        f"in {time.perf_counter() - t:.1f} s (host drawing included)")
+    if strip.dtype != np.uint8 or strip.ndim != 3 or strip.shape[0] != 3:
+        raise AssertionError(f"evaluate_qualitatively returned {strip.shape} {strip.dtype}")
+
+
+def one_slot(npz, local_nodes, dev, card):
+    """(b) the sanity building (DATA_POINT of phase 9's set) in one slot, K=1: the kernels by
+    ``bucket_kernels`` (hourglass f32 and bf16, both training stacks layer by layer, timed
+    against their bounds), then 3 f32 train steps with the fused step's launches; -> step ms."""
+    from building_gan_torch.config import Configuration
+    from building_gan_torch.data import pack_grid
+    from building_gan_torch.data.pipeline import GraphDataset
+
+    cfg = Configuration(sanity_checking=True, SAVE_DATA_PATH=npz, COMPUTE_DTYPE="float32",
+                        GRID_LOCAL_NODES=local_nodes)
+    [sample] = GraphDataset(cfg).samples
+    batch = pack_grid([sample], cfg, batch_slots=1).to(dev)
+    tag = (f"one slot (building {sample[1].data_number}, {sample[1].x.shape[0]} voxels, "
+           f"DATA_POINT {cfg.DATA_POINT})")
+    bucket_kernels(tag, batch, dev, card)
+    return counted_steps(cfg, batch, dev, 3, "one-slot step (float32)", card, FUSED_STEP)[1]
+
+
+def roofline_line(cfg_tb, batch_t, bf16_ms, card):
+    """(e) the bf16 train step's roofline share at phase 7's batch: the work model's floor
+    (utils/roofline.py, the H100's published peaks) over the median bf16 step of phase 7's
+    turns."""
+    from building_gan_torch.utils.roofline import attainable
+
+    B, R = batch_t.mask.shape[0], int(np.prod(batch_t.grid_shape))
+    n_real = int(batch_t.mask.sum().item())
+    a = attainable(cfg_tb, B * R, n_real)
+    med = float(np.median(bf16_ms))
+    say(f"roofline: bf16 step at phase 7's batch ({B} slots x {R} cells, {n_real} real nodes): "
+        f"floor {a['floor_ms']} ms ({a['binding_resource']}; realistic {a['floor_realistic_ms']} "
+        f"ms, {a['binding_resource_realistic']}) over the median step {med:.1f} ms = "
+        f"{100 * a['floor_ms'] / med:.2f}% ({100 * a['floor_realistic_ms'] / med:.2f}% realistic); "
+        f"attainable {a['attainable_nodes_per_sec']:.0f} nodes/s against "
+        f"{n_real / (med / 1e3):.0f}; bars mxu {a['t_mxu_ms']} / vpu {a['t_vpu_ms']} / trans "
+        f"{a['t_trans_ms']} / hbm {a['t_hbm_ms']} ms at the published H100 peaks on {card}")
+
+
+def surfaces_phase(cfg_tb, batch_t, bf16_ms, grid_flags, root, dev, card):
+    """Phase 12: the reference's other surfaces on phase 9's buildings (``root``)."""
+    import os
+
+    t_phase = time.perf_counter()
+    npz, raw = os.path.join(root, "npz"), os.path.join(root, "raw")
+    local_nodes = int(grid_flags[grid_flags.index("--grid-local-nodes") + 1])
+    t = time.perf_counter()
+    sanity_cli(npz, local_nodes, root, dev, card)
+    say(f"phase 12a: sanity {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ms = one_slot(npz, local_nodes, dev, card)
+    say(f"phase 12b: one slot {time.perf_counter() - t:.1f} s; one-slot f32 steps "
+        f"{' '.join(f'{v:.1f}' for v in ms)} ms")
+    t = time.perf_counter()
+    render_phase(npz, local_nodes, os.path.join(root, "run"), dev, card)
+    say(f"phase 12c: best_of_k {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    analyze_and_ingest(raw, npz, root, card)
+    say(f"phase 12d: analyze and ingest {time.perf_counter() - t:.1f} s")
+    roofline_line(cfg_tb, batch_t, bf16_ms, card)
+    say(f"phase: other surfaces {time.perf_counter() - t_phase:.1f} s")
 
 
 def serve(cfg, samples, seeds, dev, card, requests=REQUESTS, clients=CLIENTS):
@@ -2484,7 +2820,8 @@ def main() -> int:
     cfg_tb = cfg_t.replace(COMPUTE_DTYPE="bfloat16")
     state_b, _, (fwd_launches_b, bwd_launches_b) = train_phase(cfg_tb, batch_t, dev)
     train_phase(cfg_tb.replace(GP_DTYPE="float32"), batch_t, dev, steps=1)
-    dtype_turns({"float32": (cfg_t, state), "bfloat16": (cfg_tb, state_b)}, batch_t, dev, card)
+    turns_ms, _ = dtype_turns({"float32": (cfg_t, state), "bfloat16": (cfg_tb, state_b)}, batch_t,
+                              dev, card)
     say(f"phase: bf16 train steps {time.perf_counter() - t_phase:.1f} s; launches fwd "
         f"{fwd_launches_b} bwd {bwd_launches_b} in the 3 bf16 steps")
 
@@ -2546,10 +2883,14 @@ def main() -> int:
 
         # 11. the other training modes, the transformer generator, GRID_BUCKETS and the router
         threads += modes_phase(cfg_t, batch_t, grid_flags, root, dev, card)
+
+        # 12. the reference's other surfaces: sanity and the kernels on one slot, best-of-k,
+        # analyze and ingest, the bf16 step's roofline share
+        surfaces_phase(cfg_tb, batch_t, turns_ms["bfloat16"], grid_flags, root, dev, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # 12. kernels line: the training kernels' times are one generator stack
+    # 13. kernels line: the training kernels' times are one generator stack
     # (14 layer launches) at the step's shapes; each kernel at f32 and at bf16 storage,
     # launches from that dtype's main path (the server's, 3 train steps)
     kernels = []
@@ -2583,7 +2924,7 @@ def main() -> int:
     say(f"total: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
 
-    # 13. result line, last
+    # 14. result line, last
     if any(srv._thread.is_alive() for srv in servers) or any(th.is_alive() for th in threads):
         raise AssertionError("a server or client thread is still running")
     say(json.dumps({"ok": True, "device": {

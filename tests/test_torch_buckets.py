@@ -247,7 +247,7 @@ def test_cli_trains_and_tests_with_grid_buckets(dataset, tmp_path, monkeypatch, 
               "--grid-local-nodes", "128"]
     cli.main(["train", "--epochs", "1"] + common)
     assert "epoch 1:" in capsys.readouterr().out and ckpt.exists(run)
-    cli.main(["test"] + common)
+    cli.main(["test", "--num-samples-to-viz", "0"] + common)
     values = [float(ln.split(":")[1]) for ln in capsys.readouterr().out.splitlines() if "_test:" in ln]
     assert len(values) == 5 and all(np.isfinite(v) for v in values)
 

@@ -493,3 +493,36 @@ def _tensors(tree):
     elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _tensors(v)
+
+
+@pytest.mark.cuda
+def test_sanity_overfit_one_building(cuda_device):
+    """The port of tests/test_train.py::test_sanity_overfit_one_building (the edge layout
+    there) on the grid's fused route at the config of record's widths: one real-scale
+    building in one slot (K=1), N_CRITIC=1, the supervised term on (LAMBDA_LABEL=10) and
+    LEARNING_RATE_GENERATOR=1e-3, as there; 1,500 steps at the default bf16.  The F1
+    after the last step must pass 0.5 and the F1 after the first 100 steps."""
+    import time
+
+    from building_gan_torch.data import generate_building_real_scale, pack_grid
+
+    cfg = Configuration(sanity_checking=True, N_CRITIC=1, LAMBDA_LABEL=10.0,
+                        LEARNING_RATE_GENERATOR=1e-3)
+    sample = process_building(*generate_building_real_scale(77), cfg, "000077")
+    cfg = cfg.replace(GRID_LOCAL_NODES=64 * math.ceil(sample[0].x.shape[0] / 64))
+    batch = pack_grid([sample], cfg, batch_slots=1).to(cuda_device)
+    torch.manual_seed(0)
+    state = create_train_state(cfg, GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg))
+    step = make_train_step(cfg, state)
+    gen = torch.Generator(device=cuda_device).manual_seed(42)
+    f1, f0 = [], gt.fwd_launches.value
+    t = time.perf_counter()
+    for _ in range(1500):
+        f1.append(step(batch, gen)["f1"])
+    f1 = torch.stack(f1).cpu()
+    seconds = time.perf_counter() - t
+    print(f"sanity overfit: {sample[1].x.shape[0]} voxels, F1 after steps 1 / 100 / 1500: "
+          f"{f1[0]:.4f} / {f1[99]:.4f} / {f1[-1]:.4f}; {seconds:.1f} s for 1500 steps")
+    assert gt.fwd_launches.value - f0 == 1500 * (2 * 14 + 3 * 6)  # every step fused
+    assert torch.isfinite(f1).all()
+    assert f1[-1] > 0.5 and f1[-1] > f1[99]

@@ -14,7 +14,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "optax", "building_gan_tpu")
-LAZY_ONLY = ("tensorboardX",)
+LAZY_ONLY = ("tensorboardX", "matplotlib", "mpl_toolkits", "PIL")
 TRAINER_SLICE = ("data/pipeline.py", "checkpoint/ckpt.py", "train/trainer.py", "train/writer.py",
                  "cli/main.py")
 

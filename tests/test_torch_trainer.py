@@ -234,8 +234,9 @@ def test_trainer_trains_resumes_and_tests(processed, tmp_path, monkeypatch, caps
     assert set(result) == {"f1", "f1_min", "precision", "recall", "accuracy"}
     assert all(np.isfinite(v) for v in result.values())
     assert "f1_score_test:" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        second.test(num_samples_to_viz=1)
+    second.test(num_samples_to_viz=1)  # the scores, then one test building rendered
+    out = capsys.readouterr().out
+    assert "f1_score_test:" in out and "rendered 1 test samples: a (3, " in out
 
 
 def test_best_checkpoint_when_latest_is_not_ahead(processed, tmp_path, capsys):
@@ -318,7 +319,7 @@ def test_cli_synth_preprocess_train_test(tiny_cli, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "processed 16 buildings" in out and "epoch 1:" in out and "epoch 2:" in out
     assert ckpt.exists(run)
-    tiny_cli.main(["test"] + common)
+    tiny_cli.main(["test", "--num-samples-to-viz", "0"] + common)
     out = capsys.readouterr().out
     assert "Loaded best states" in out
     values = {ln.split(":")[0].strip(): float(ln.split(":")[1]) for ln in out.splitlines()
@@ -332,15 +333,15 @@ def test_cli_synth_preprocess_train_test(tiny_cli, tmp_path, capsys):
                "--grid-local-nodes", "128"]
     tiny_cli.main(["train", "--epochs", "1"] + default)
     assert "epoch 1:" in capsys.readouterr().out and ckpt.exists(run16)
-    tiny_cli.main(["test"] + default)
+    tiny_cli.main(["test", "--num-samples-to-viz", "0"] + default)
     out = capsys.readouterr().out
     assert all(np.isfinite(float(ln.split(":")[1])) for ln in out.splitlines() if "_test:" in ln)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tiny_cli.main(["train", "--save-data-path", npz, "--log-dir", run,
                            "--compute-dtype", "float32"])
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        tiny_cli.main(["test", "--num-samples-to-viz", "2"] + common)
+    tiny_cli.main(["test", "--num-samples-to-viz", "2"] + common)
+    assert "rendered 2 test samples: a (3, " in capsys.readouterr().out
 
 
 @pytest.fixture(scope="module")
@@ -368,7 +369,7 @@ def test_cli_trains_and_tests_edges_and_other_convs(flags, cli_data, tiny_cli, t
     tiny_cli.main(["train", "--epochs", "1"] + common)
     out = capsys.readouterr().out
     assert "epoch 1:" in out and ckpt.exists(run)
-    tiny_cli.main(["test"] + common)
+    tiny_cli.main(["test", "--num-samples-to-viz", "0"] + common)
     out = capsys.readouterr().out
     values = [float(ln.split(":")[1]) for ln in out.splitlines() if "_test:" in ln]
     assert len(values) == 5 and all(np.isfinite(v) for v in values)

@@ -299,6 +299,6 @@ def test_cli_trains_and_tests_the_transformer(tmp_path, monkeypatch, capsys):
     assert "epoch 1:" in capsys.readouterr().out and ckpt.exists(run)
     assert "block_0.attn.qkv.weight" in torch.load(f"{run}/{ckpt.STATE_FILE}",
                                                    weights_only=True)["generator"]
-    cli.main(["test"] + common)
+    cli.main(["test", "--num-samples-to-viz", "0"] + common)
     values = [float(ln.split(":")[1]) for ln in capsys.readouterr().out.splitlines() if "_test:" in ln]
     assert len(values) == 5 and all(np.isfinite(v) for v in values)
