@@ -36,15 +36,25 @@ and Q5, and ``--grid-buckets 6x6x6,8x8x8,11x12x12`` packs each building at
 its smallest fitting grid shape.
 ``COMPUTE_DTYPE`` defaults to bfloat16 (f32 parameters, bf16 activations), as
 in the JAX package; ``--compute-dtype float32`` computes in f32.  A checkpoint
-holds f32 parameters at either dtype.  ``--mesh-data`` above 1 (data
-parallelism) is not ported yet and raises, naming ROADMAP Queue A item 6.
+holds f32 parameters at either dtype.  ``train``, ``sanity`` and ``test`` take
+``--mesh-data N`` (data parallelism, ``parallel/dp.py``): above 1 the CLI
+starts N ranks itself, one process each (``torch.multiprocessing``, spawn),
+rank r on ``cuda:r`` over NCCL, or on the CPU over gloo with ``--device cpu``;
+they meet through a file store in a temporary directory.  On the card the
+parent builds the CUDA sources once before it starts them, and touches no
+card itself; more ranks than visible cards raises, naming both counts.
 ``--use-pallas``, ``--device-resident`` and ``--pack-gemms`` schedule TPU work
 in the JAX package; here they are accepted and change nothing.
+
+    python -m building_gan_torch.cli.main train --save-data-path data/npz --log-dir runs/a \\
+        --mesh-data 4
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 import time
 
 
@@ -63,7 +73,8 @@ def _add_config_overrides(p: argparse.ArgumentParser) -> None:
     p.add_argument("--pack-voxel-edges", type=int, default=None)
     p.add_argument("--pack-local-nodes", type=int, default=None)
     p.add_argument("--pack-local-edges", type=int, default=None)
-    p.add_argument("--mesh-data", type=int, default=None, help="data-parallel shards")
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="data-parallel ranks (MESH_DATA): one process and one card each")
     p.add_argument("--layout", default=None, choices=["grid", "edges"], help="compute layout (LAYOUT)")
     p.add_argument("--generator-arch", default=None, choices=["hourglass", "transformer"], help="GENERATOR_ARCH")
     p.add_argument("--batch-level-matching", action="store_true", help="quirk Q1 parity")
@@ -86,13 +97,6 @@ def _add_config_overrides(p: argparse.ArgumentParser) -> None:
                         "(HOURGLASS_MIN_CHANNELS; 1 = reference schedule)")
     p.add_argument("--device", default="cuda",
                    help="torch device to train and test on (default cuda; cpu to run without a GPU)")
-
-
-def _not_ported(cfg) -> None:
-    """Raise on a configuration the port cannot run yet, naming the ROADMAP item."""
-    if cfg.MESH_DATA > 1:
-        raise NotImplementedError("--mesh-data > 1: data parallelism is not ported yet "
-                                  "(ROADMAP Queue A item 6)")
 
 
 def _build_config(args):
@@ -178,7 +182,16 @@ def cmd_analyze(args):
     analyze_dataset(_build_config(args))
 
 
-def _make_trainer(args, sanity: bool = False):
+def _trainer_config(args, sanity: bool):
+    cfg = _build_config(args)
+    if sanity:  # as Configuration(sanity_checking=True): one building (DATA_POINT), one slot
+        cfg = cfg.replace(SANITY_CHECKING=True)
+    cfg.require_ported_dtype(f"building_gan_torch {args.cmd}")  # before the data loads
+    return cfg
+
+
+def _make_trainer(args, cfg, device, group=None):
+    """The trainer of ``cfg`` on ``device``; with ``group``, its rank's (the rank's packs)."""
     import torch
 
     from ..data.pipeline import GraphDataLoaders
@@ -188,27 +201,72 @@ def _make_trainer(args, sanity: bool = False):
     from ..models.transformer import GridTransformerGenerator
     from ..train.trainer import Trainer
 
-    cfg = _build_config(args)
-    if sanity:  # as Configuration(sanity_checking=True): one building (DATA_POINT), one slot
-        cfg = cfg.replace(SANITY_CHECKING=True)
-    _not_ported(cfg)
-    cfg.require_ported_dtype(f"building_gan_torch {args.cmd}")  # before the data loads
-    loaders = GraphDataLoaders(cfg)
-    torch.manual_seed(cfg.SEED)  # the models' initial weights
+    if group is None:
+        loaders = GraphDataLoaders(cfg)
+    else:
+        loaders = GraphDataLoaders(cfg, n_device_batches=group.size(), rank=group.rank())
+    torch.manual_seed(cfg.SEED)  # the models' initial weights, alike on every rank
     if cfg.LAYOUT == "grid":
         G = GridTransformerGenerator if cfg.GENERATOR_ARCH == "transformer" else GridVoxelGNNGenerator
         gen, disc = G(cfg), GridVoxelGNNDiscriminator(cfg)
     else:  # the packed edge-list layout
         gen, disc = VoxelGNNGenerator(cfg), VoxelGNNDiscriminator(cfg)
-    return Trainer(gen, disc, loaders, cfg, log_dir=args.log_dir, device=args.device)
+    return Trainer(gen, disc, loaders, cfg, log_dir=args.log_dir, device=device, group=group)
+
+
+def _act(trainer, args, action: str) -> None:
+    if action == "test":
+        trainer.test(num_samples_to_viz=args.num_samples_to_viz, show=args.show)
+    else:
+        trainer.train()
+
+
+def _rank_main(rank: int, n: int, store_path: str, args, cfg, action: str, threads: int) -> None:
+    """One data-parallel rank of the CLI (a spawned process): join the group, then the
+    trainer on the rank's device and packs."""
+    import torch
+
+    from ..parallel import mesh
+
+    device_type = torch.device(args.device).type
+    if device_type == "cpu":  # the ranks share the parent's threads
+        torch.set_num_threads(max(1, threads // n))
+    group = mesh.init_data_group(rank, n, store_path, device_type)
+    try:
+        _act(_make_trainer(args, cfg, mesh.rank_device(rank, device_type), group), args, action)
+    finally:
+        mesh.destroy_data_group()
+
+
+def _run(args, action: str, sanity: bool = False) -> None:
+    """``action`` ("train" or "test") on one device, or on ``--mesh-data`` ranks."""
+    import torch
+
+    from ..parallel import mesh
+
+    cfg = _trainer_config(args, sanity)
+    n = cfg.MESH_DATA
+    if n <= 1:
+        _act(_make_trainer(args, cfg, args.device), args, action)
+        return
+    device_type = torch.device(args.device).type
+    mesh.check_ranks(n, device_type)
+    if device_type == "cuda":
+        from ..ops import _build
+
+        _build.build_all()  # once, here, so the ranks load the built libraries
+    with tempfile.TemporaryDirectory(prefix="bgt_ranks_") as d:
+        torch.multiprocessing.spawn(
+            _rank_main, nprocs=n, join=True,
+            args=(n, os.path.join(d, "store"), args, cfg, action, torch.get_num_threads()))
 
 
 def cmd_train(args):
-    _make_trainer(args).train()
+    _run(args, "train")
 
 
 def cmd_sanity(args):
-    _make_trainer(args, sanity=True).train()
+    _run(args, "train", sanity=True)
 
 
 def cmd_viz(args):
@@ -219,7 +277,7 @@ def cmd_viz(args):
 
 
 def cmd_test(args):
-    _make_trainer(args).test(num_samples_to_viz=args.num_samples_to_viz, show=args.show)
+    _run(args, "test")
 
 
 def main(argv=None):

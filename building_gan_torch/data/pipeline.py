@@ -146,7 +146,10 @@ class PackedLoader:
     buildings a grid slot.  With ``GRID_BUCKETS`` the buildings are routed to
     their smallest fitting bucket and each bucket packs at its own grid shape.
     With ``n_device_batches`` set, consecutive packs of one shape are grouped,
-    completed with ``null_like`` packs, and stacked on a leading device axis.
+    completed with ``null_like`` packs, and stacked on a leading device axis;
+    with ``rank`` set too, member ``rank`` of each group comes unstacked, so the
+    data-parallel ranks, each building the same epoch, take one pack of each
+    group between them (rank r takes member r).
     """
 
     def __init__(
@@ -156,12 +159,16 @@ class PackedLoader:
         shuffle: bool = True,
         seed: int = 0,
         n_device_batches: Optional[int] = None,
+        rank: Optional[int] = None,
     ):
+        if rank is not None and not (n_device_batches and 0 <= rank < n_device_batches):
+            raise ValueError(f"rank {rank} needs n_device_batches above it, got {n_device_batches}")
         self.samples = list(samples)
         self.cfg = cfg
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
         self.n_device_batches = n_device_batches
+        self.rank = rank
         if cfg.LAYOUT == "grid":
             max_shape = cfg.GRID_SHAPE
             if cfg.GRID_BUCKETS:
@@ -212,16 +219,18 @@ class PackedLoader:
                 group.append(packs[i])
                 i += 1
             group += [null_like(group[0]) for _ in range(d - len(group))]
-            yield stack(group)
+            yield stack(group) if self.rank is None else group[self.rank]
 
     def num_packs_per_epoch(self) -> int:
         return len(self._make_batches(self.samples))
 
 
 class GraphDataLoaders:
-    """Seeded 65/25/10 split + three shuffled loaders (reference data.py:166-212)."""
+    """Seeded 65/25/10 split + three shuffled loaders (reference data.py:166-212); with
+    ``n_device_batches`` and ``rank``, each loader gives rank ``rank``'s packs."""
 
-    def __init__(self, configuration: Configuration, n_device_batches: Optional[int] = None):
+    def __init__(self, configuration: Configuration, n_device_batches: Optional[int] = None,
+                 rank: Optional[int] = None):
         cfg = configuration
         self.configuration = cfg
         self.sanity_checking = cfg.SANITY_CHECKING
@@ -238,7 +247,7 @@ class GraphDataLoaders:
 
         def loader(indices, seed):
             return PackedLoader([self.dataset[i] for i in indices], cfg, shuffle=True, seed=seed,
-                                n_device_batches=n_device_batches)
+                                n_device_batches=n_device_batches, rank=rank)
 
         def held_out(indices, seed):
             return loader(indices, seed) if not self.sanity_checking and len(indices) else None

@@ -46,23 +46,32 @@ def storage_flag(x: torch.Tensor) -> int:
 
 
 class LaunchCounter:
-    """Thread-safe count of a wrapper's kernel launches."""
+    """Thread-safe count of a wrapper's kernel launches, in all and by the calling thread
+    (``in_this_thread``: a data-parallel rank run as a thread counts its own)."""
 
     def __init__(self):
         self._n = 0
+        self._by_thread: dict = {}
         self._lock = threading.Lock()
 
     def add(self) -> None:
         with self._lock:
             self._n += 1
+            me = threading.get_ident()
+            self._by_thread[me] = self._by_thread.get(me, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+            self._by_thread.clear()
 
     @property
     def value(self) -> int:
         return self._n
+
+    @property
+    def in_this_thread(self) -> int:
+        return self._by_thread.get(threading.get_ident(), 0)
 
 
 launches = LaunchCounter()
@@ -240,13 +249,15 @@ def hourglass_cuda(x, mask, Ws, atts, vecs, chans, gid=None, num_graphs=1,
     K = num_graphs
     lib = _load()
     chans_c = c_chans(chans)
-    if cluster == 0 and lib.hg_cluster_size(B, R, cmax, K, chans_c, L) == 0:
-        raise ValueError(f"no cluster of at most 16 CTAs holds a slot of {R} rows at width {cmax} "
-                         f"with {K} keys")
     out = torch.empty_like(x)
     bf16 = storage_flag(x)
     vlast = torch.empty(x.shape, device=dev, dtype=torch.float32) if bf16 else None
+    # x's card is the runtime's current device for the occupancy query and the
+    # launch, which read it (cudaGetDevice), and its stream is the one launched on
     with torch.cuda.device(dev):
+        if cluster == 0 and lib.hg_cluster_size(B, R, cmax, K, chans_c, L) == 0:
+            raise ValueError(f"no cluster of at most 16 CTAs holds a slot of {R} rows at width "
+                             f"{cmax} with {K} keys")
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.hg_forward(
             x.data_ptr(), mask.data_ptr(), None if gid is None else gid.data_ptr(), K,

@@ -24,9 +24,15 @@ the trainer's device, seeded from ``(SEED, epoch)`` (validation from
 draws from an epoch on what an uninterrupted run draws there.  Torch cannot
 replay JAX's threefry, so the streams differ from the JAX package's.
 
-Not ported: the mesh branches (ROADMAP Queue A item 6).  The scalar log is
-TensorBoard's when tensorboardX is installed, JSON lines otherwise
-(``train/writer.py``).
+With a data-parallel ``group`` (the JAX package's mesh branches) the
+trainer is one rank of it: it trains its own replica on its own device
+through ``parallel/dp.py``'s steps on the rank's packs (the loaders built
+with ``n_device_batches`` and ``rank``), its noise from a generator derived
+from the epoch's and the rank.  Every rank computes the same aggregated
+scores; rank 0 alone writes the checkpoints, the scalar log, the printed
+scores and the renders, and a barrier follows each checkpoint write.  Every
+rank resumes from the same files.  The scalar log is TensorBoard's when
+tensorboardX is installed, JSON lines otherwise (``train/writer.py``).
 """
 
 from __future__ import annotations
@@ -43,11 +49,13 @@ from ..config import PROGRAM_NAMES, Configuration
 from ..data.pipeline import GraphDataLoaders, prefetch
 from ..models import fast_infer
 from ..ops.rng import normal_box_muller
+from ..parallel import dp
+from ..parallel.mesh import barrier
 from ..utils.profiling import runtime_calculator
 from . import metrics as M
 from .state import cosine_lr, create_train_state, set_g_lr
 from .step import make_eval_step, make_train_step
-from .writer import make_writer
+from .writer import NullWriter, make_writer
 
 TRAIN_KEYS = ("g_loss", "d_loss", "f1", "precision", "recall", "accuracy")
 EVAL_KEYS = ("g_loss", "f1", "precision", "recall", "accuracy")
@@ -91,8 +99,10 @@ class Trainer:
 
     ``generator`` and ``discriminator`` are the port's models of the loaders'
     layout (grid, or the packed edge list), their weights initialised by the
-    caller; the optimizers come from the configuration (``train/state.py``).
-    Everything runs on ``device``, the card unless the caller asks for the CPU.
+    caller (alike on every rank); the optimizers come from the configuration
+    (``train/state.py``).  Everything runs on ``device``, the card unless the
+    caller asks for the CPU.  With ``group`` the trainer is one data-parallel
+    rank (module docstring); its loaders must give this rank's packs.
     """
 
     def __init__(
@@ -103,8 +113,11 @@ class Trainer:
         configuration: Configuration,
         log_dir: Optional[str] = None,
         device="cuda",
+        group=None,
     ):
         self.device = torch.device(device)
+        self.group = group
+        self.is_writer = group is None or group.rank() == 0
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device is available; pass device='cpu' "
                                "(the CLI's --device cpu) to train on the CPU")
@@ -122,8 +135,12 @@ class Trainer:
 
         self.state = create_train_state(cfg, generator, discriminator, device=self.device)
         self.generator, self.discriminator = self.state.generator, self.state.discriminator
-        self.train_step = make_train_step(cfg, self.state)
-        self.eval_step = make_eval_step(cfg, self.state)
+        if group is None:
+            self.train_step = make_train_step(cfg, self.state)
+            self.eval_step = make_eval_step(cfg, self.state)
+        else:
+            self.train_step = dp.make_parallel_train_step(cfg, self.state, group)
+            self.eval_step = dp.make_parallel_eval_step(cfg, self.state, group)
         self._fast_infer_step, self._fast_infer_packed = None, None
 
         # auto-resume (reference trainer.py:628-636); a "latest" checkpoint
@@ -144,7 +161,18 @@ class Trainer:
             restored = None
         if restored is not None:
             self.meta.update(restored[1])
-            print(f"Loaded {which} states from {self.log_dir}")
+            self._say(f"Loaded {which} states from {self.log_dir}")
+
+    def _say(self, text: str) -> None:
+        if self.is_writer:
+            print(text, flush=True)
+
+    def _written(self, write, *args) -> None:
+        """``write(*args)`` on rank 0, then (with a group) every rank waits for it."""
+        if self.is_writer:
+            write(*args)
+        if self.group is not None:
+            barrier(self.group, self.device)
 
     # ------------------------------------------------------------------
     @runtime_calculator
@@ -171,8 +199,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def train(self):
         cfg = self.configuration
-        writer = make_writer(self.log_dir)
-        print(f"Scalar log: {type(writer).__module__}.{type(writer).__name__} in {self.log_dir}")
+        writer = make_writer(self.log_dir) if self.is_writer else NullWriter()
+        self._say(f"Scalar log: {type(writer).__module__}.{type(writer).__name__} in {self.log_dir}")
         for key, value in cfg.to_dict().items():
             writer.add_text(f"configuration/{key}", str(value))
 
@@ -190,11 +218,10 @@ class Trainer:
                 tr["f1_min"] * cfg.F1_SCORE_TRAIN_WEIGHT
                 + va["f1_min"] * cfg.F1_SCORE_VALIDATION_WEIGHT
             )
-            print(
+            self._say(
                 f"epoch {epoch}: g_loss={tr['g_loss']:.4f} d_loss={tr['d_loss']:.4f} "
                 f"f1={tr['f1']:.4f}/{va['f1']:.4f} f1_min={tr['f1_min']:.4f}/{va['f1_min']:.4f} "
-                f"acc={tr['accuracy']:.4f}/{va['accuracy']:.4f}",
-                flush=True,
+                f"acc={tr['accuracy']:.4f}/{va['accuracy']:.4f}"
             )
 
             # the reference's scalar tags (trainer.py:680-693)
@@ -251,10 +278,10 @@ class Trainer:
                 )
 
             if best_f1_score < current_f1_score:
-                print(f"Best f1 score updated: {best_f1_score} -> {current_f1_score}")
+                self._say(f"Best f1 score updated: {best_f1_score} -> {current_f1_score}")
                 best_f1_score = current_f1_score
                 if not self.sanity_checking:
-                    ckpt.save_states(self.log_dir, self.state, {
+                    self._written(ckpt.save_states, self.log_dir, self.state, {
                         "epoch_start": epoch,
                         "epoch_end": epoch_end,
                         "best_f1_score": best_f1_score,
@@ -268,15 +295,15 @@ class Trainer:
                         "accuracy_score_train": tr["accuracy"],
                         "accuracy_score_validation": va["accuracy"],
                     })
-                fig = self._render_sample(epoch)
+                fig = self._render_sample(epoch) if self.is_writer else None
                 if fig is not None:
                     writer.add_image(f"epoch_{epoch}", fig, epoch)
             elif not self.sanity_checking and ckpt.exists(self.log_dir):
-                ckpt.patch_epoch_start(self.log_dir, epoch)  # quirk Q11
+                self._written(ckpt.patch_epoch_start, self.log_dir, epoch)  # quirk Q11
 
             interval = int(getattr(cfg, "CKPT_LATEST_INTERVAL", 0) or 0)
             if interval and not self.sanity_checking and epoch % interval == 0:
-                ckpt.save_latest(self.log_dir, self.state, {
+                self._written(ckpt.save_latest, self.log_dir, self.state, {
                     "epoch_start": epoch + 1,
                     "epoch_end": epoch_end,
                     "best_f1_score": best_f1_score,
@@ -317,14 +344,15 @@ class Trainer:
     @runtime_calculator
     def test(self, num_samples_to_viz: int = 0, show: bool = False) -> dict:
         """Test-split scores (reference trainer.py:749-806): printed, and returned; then
-        ``num_samples_to_viz`` test buildings rendered (``viz/render.py``, best-of-1)."""
+        ``num_samples_to_viz`` test buildings rendered (``viz/render.py``, best-of-1).
+        With a group every rank evaluates its packs; rank 0 prints and renders."""
         loader = self.dataloaders.test_dataloader
         if loader is None:
             raise ValueError("no test split (sanity mode, or too few buildings)")
         gen = stream_generator(self.configuration.SEED + TEST_SEED_OFFSET, None, self.device)
         out = self._evaluate(loader, gen)
         out = {k: out[k] for k in ("f1", "precision", "recall", "accuracy", "f1_min")}
-        print(
+        self._say(
             f"""
             f1_score_test: {out['f1']}
             f1_score_min_test: {out['f1_min']}
@@ -333,7 +361,7 @@ class Trainer:
             accuracy_score_test: {out['accuracy']}
             """
         )
-        if num_samples_to_viz > 0:
+        if num_samples_to_viz > 0 and self.is_writer:
             from ..viz.render import evaluate_qualitatively
 
             strip = evaluate_qualitatively(self, epoch=None, num_samples_to_viz=num_samples_to_viz,

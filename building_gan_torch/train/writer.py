@@ -8,6 +8,8 @@ package imports, else a ``JsonlScalarWriter``: the same calls
 records its curves.  An image (CHW uint8, the trainer's best-epoch render)
 is saved as ``log_dir/images/{tag}_{step}.npy`` beside its record, which
 keeps Pillow out of the writer.  A resumed run appends to the same file.
+``NullWriter`` takes the same calls and writes nothing: a data-parallel
+rank other than 0 logs through it.
 """
 
 from __future__ import annotations
@@ -60,6 +62,15 @@ class JsonlScalarWriter:
 
     def close(self) -> None:
         self._f.close()
+
+
+class NullWriter:
+    """The writer's calls, each doing nothing."""
+
+    def _none(self, *args, **kwargs) -> None:
+        return None
+
+    add_text = add_scalar = add_histogram_raw = add_image = close = _none
 
 
 def make_writer(log_dir: str):

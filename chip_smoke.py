@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --steps N   # only N train steps, timed (to compare trees)
+    python3 chip_smoke.py --dp   # only phase 13 (data parallelism; NCCL across
+        # the cards too on a host of 2 to 4)
     python3 chip_smoke.py --time-hourglass [DIR]   # only the serving kernel, timed;
         # DIR: a checkout whose building_gan_torch is timed instead (to compare trees)
 
@@ -122,9 +124,24 @@ Phases, one short output line or a few each:
      reference's .pt pairs, bit-equal to their NPZ files; (e) the bf16 step's
      roofline share (utils/roofline.py, the H100's published peaks) at phase
      7's batch;
-  13. the run's seconds and a {"kernels": [...]} line: each kernel at f32 and
+  13. data parallelism (parallel/mesh.py, parallel/dp.py), f32 then bf16: the
+     train batch's 107 slots as two packs of GRID_BATCH 54; two ranks sharing
+     the card as threads over gloo (CUDA tensors): (a) the same pack on both
+     and (b) a pack and a null pack against the one-device step, (c) the two
+     uneven packs against a sequential oracle weighting each pack's gradients
+     by its real cells before each Adam update (metrics rtol 1e-4 / atol
+     1e-5, parameters 1e-4 / 1e-6), the replicas equal bit for bit after 3
+     steps, 150 / 80 / 30 launches a rank a step, a null pack finite through
+     the kernels, step ms, nodes/s and all-reduce ms; NCCL at one rank (a
+     step against one device, host syncs); a Trainer of two thread ranks on
+     phase 9's buildings (1 epoch, rank 0's checkpoint and log, test, its
+     eval launches a rank); on a host of 2-4 cards NCCL with one rank a card
+     (spawned processes): the same checks, the kernels on the last card with
+     card 0 current, times, and the CLI's train / test --mesh-data N; on one
+     card a line saying why that part did not run;
+  14. the run's seconds and a {"kernels": [...]} line: each kernel at f32 and
      at bf16 storage ("dtype"), launches from that dtype's main path;
-  14. the server stopped, every thread joined, and the result line last.
+  15. the server stopped, every thread joined, and the result line last.
 
 Every kernel is held against its plain version run in float64, the gradients
 too, by two rules: its max abs error within 4x the plain float32 version's own,
@@ -2406,6 +2423,595 @@ def surfaces_phase(cfg_tb, batch_t, bf16_ms, grid_flags, root, dev, card):
     say(f"phase: other surfaces {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 13: data parallelism (parallel/mesh.py, parallel/dp.py) at the config of record, f32
+# then bf16: two ranks sharing the card through a gloo group (threads of this process), NCCL
+# at one rank, and on a host of 2 to 4 cards NCCL at one rank a card (spawned processes).
+DP_SLOTS, DP_STEPS, DP_MAX_CARDS = 54, 3, 4  # GRID_BATCH a rank: the 107 slots in 2 packs
+DP_KEYS = ("g_loss", "d_loss", "g_loss_adv", "g_loss_ratio", "g_loss_ratio_void", "g_loss_far",
+           "g_loss_label", "f1", "f1_min", "precision", "recall", "accuracy")
+DP_UNEVEN_KEYS = ("g_loss", "d_loss", "f1", "f1_min", "precision", "recall", "accuracy")
+DP_RTOL, DP_ATOL, DP_PARAM_ATOL = 1e-4, 1e-5, 1e-6  # tests/test_parallel.py's
+
+
+def dev_sync(dev) -> None:
+    """Wait for ``dev``'s work (a no-op on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dp_packs(cfg_t):
+    """(cfg at GRID_BATCH DP_SLOTS, the train batch's slots as two packs of DP_SLOTS slots on
+    the CPU: the first 54, then the other 53 and an empty slot)."""
+    from building_gan_torch.data import pack_grid_multi_from_slots
+
+    cfg = cfg_t.replace(GRID_BATCH=DP_SLOTS)
+    slots, samples = train_slots(), list(train_samples()[:TRAIN_BATCH_BUILDINGS])
+    packs = [pack_grid_multi_from_slots(samples, slots[i:i + DP_SLOTS], cfg, batch_slots=DP_SLOTS)
+             for i in range(0, len(slots), DP_SLOTS)]
+    if len(packs) != 2:
+        raise AssertionError(f"{len(slots)} slots made {len(packs)} packs of {DP_SLOTS}, expected 2")
+    return cfg, packs
+
+
+DP_INIT_LOCK = threading.Lock()  # ranks as threads share torch's default generator
+
+
+def dp_state(cfg, dev):
+    """Fresh models from torch.manual_seed(cfg.SEED) on ``dev``: the same weights in every rank."""
+    from building_gan_torch.models.grid_models import GridVoxelGNNDiscriminator, GridVoxelGNNGenerator
+    from building_gan_torch.train.state import create_train_state
+
+    with DP_INIT_LOCK:
+        torch.manual_seed(cfg.SEED)
+        return create_train_state(cfg, GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg),
+                                  device=dev)
+
+
+def dp_params(state, device=None):
+    return {f"{m}.{k}": p.detach().to(device or p.device, copy=True)
+            for m in ("generator", "discriminator") for k, p in getattr(state, m).named_parameters()}
+
+
+def launches_here():
+    """(hourglass, training forward, backward, dropout-byte) launches of the calling thread."""
+    from building_gan_torch.ops import gat_train as gt
+    from building_gan_torch.ops import hourglass as hg
+
+    return tuple(c.in_this_thread for c in (hg.launches, gt.fwd_launches, gt.bwd_launches,
+                                            gt.bytes_launches))
+
+
+def dp_rank_run(cfg, pack, dev, group, steps):
+    """``steps`` parallel steps of fresh models on this rank's ``pack``, every rank drawing from
+    a generator seeded 0 (fold_device_rng=False); -> step 1's metrics and parameters, the
+    last step's parameters, each step's launches and ms (host clock, synchronised), the
+    pack's real cells and the state."""
+    from building_gan_torch.parallel import dp
+
+    state = dp_state(cfg, dev)
+    step = dp.make_parallel_train_step(cfg, state, group, fold_device_rng=False)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"launches": [], "ms": [], "cells": int(pack.cell_mask.sum().item())}
+    for i in range(steps):
+        before = launches_here()
+        dev_sync(dev)
+        t = time.perf_counter()
+        m = step(pack, gen)
+        dev_sync(dev)
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        out["launches"].append(tuple(b - a for a, b in zip(before, launches_here())))
+        if not all(torch.isfinite(v).all().item() for v in m.values()):
+            raise AssertionError(f"a parallel step's metrics are not finite: {m}")
+        if i == 0:
+            out["metrics"] = {k: m[k].item() for k in DP_KEYS}
+            out["cm"] = m["confusion_matrix"].cpu()
+            out["params"] = dp_params(state)
+    out["final"] = dp_params(state)
+    out["state"] = state
+    return out
+
+
+def dp_one_device(cfg, pack, dev):
+    """The one-device step on ``pack`` from the same weights and draws: (metrics, parameters)."""
+    from building_gan_torch.train.step import make_train_step
+
+    state = dp_state(cfg, dev)
+    m = make_train_step(cfg, state)(pack, torch.Generator(device=dev).manual_seed(0))
+    return {k: m[k].item() for k in DP_KEYS}, dp_params(state), m["confusion_matrix"].cpu()
+
+
+def dp_repeats(cfg, pack, dev) -> bool:
+    """Whether the one-device step, run twice from the same weights and draws, repeats bit
+    for bit: the DP checks' tight parameter tolerance needs it (Adam turns the sign of a
+    gradient's rounding noise into a +-lr step; scripts/torch_step_determinism.py)."""
+    a, b = (dp_one_device(cfg, pack, dev)[1] for _ in range(2))
+    return all(torch.equal(v, b[k]) for k, v in a.items())
+
+
+def dp_oracle(cfg, packs, dev):
+    """One step over ``packs`` in sequence: each of the N_CRITIC + 1 updates' gradients and
+    losses the packs' real-cell-weighted mean, each pack drawing from the generator's
+    state at the update's start (the step's own losses, ``make_update_losses``);
+    -> (metrics, parameters, confusion matrix)."""
+    from building_gan_torch.ops.gat_train import build_planes
+    from building_gan_torch.train import metrics as TM
+    from building_gan_torch.train.step import make_update_losses, needs_planes
+
+    state = dp_state(cfg, dev)
+    critic_loss, generator_loss = make_update_losses(cfg, state)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w = [float(p.cell_mask.sum().item()) for p in packs]
+    planes = [build_planes(p.cell_mask, p.gid, p.grid_shape) if needs_planes(state) else None
+              for p in packs]
+
+    def update(loss_fn, module, opt):
+        leaves = list(module.parameters())
+        start, grads, outs = gen.get_state(), [], []
+        for pack, pl in zip(packs, planes):
+            gen.set_state(start)
+            for p in leaves:
+                p.grad = None
+            with torch.autograd.set_multithreading_enabled(False):  # as the step
+                out = loss_fn(pack, pl, gen)
+                (out[0] if isinstance(out, tuple) else out).backward(inputs=leaves)
+            grads.append([p.grad.clone() for p in leaves])
+            outs.append(out)
+        for i, p in enumerate(leaves):  # in f64, as the step's all-reduce
+            p.grad = (sum(wp * g[i].double() for wp, g in zip(w, grads)) / sum(w)).float()
+        opt.step()
+        return outs
+
+    d_losses = []
+    for _ in range(cfg.N_CRITIC):
+        losses = [o.item() for o in update(critic_loss, state.discriminator, state.opt_d)]
+        d_losses.append(sum(wp * v for wp, v in zip(w, losses)) / sum(w))
+    outs = update(generator_loss, state.generator, state.opt_g)
+    ms = [TM.compute_metrics(p.cell_type, o[2].detach().argmax(-1), p.cell_mask, p.graph_mask,
+                             **p.metric_graphs) for p, o in zip(packs, outs)]
+    cm = sum(m["confusion_matrix"] for m in ms)
+    metrics = {"d_loss": float(np.mean(d_losses)),
+               "g_loss": sum(wp * o[0].item() for wp, o in zip(w, outs)) / sum(w),
+               **{k: v.item() for k, v in TM.scores_from_cm(cm).items()},
+               "f1_min": min(m["f1_min"].item() for m in ms)}
+    return metrics, dp_params(state), cm.cpu()
+
+
+def dp_close(label, got, want, keys, copies=1):
+    """A rank's step 1 against the one-device step or the oracle: metrics within rtol 1e-4 /
+    atol 1e-5, parameters within rtol 1e-4 / atol 1e-6, the confusion matrix ``copies``
+    times the reference's (the same pack on that many ranks)."""
+    (gm, gp, gcm), (wm, wp, wcm) = got, want
+    m_ratio = max(abs(gm[k] - wm[k]) / (DP_ATOL + DP_RTOL * abs(wm[k])) for k in keys)
+    p_ratio = max(((gp[k].to(v.device) - v).abs() / (DP_PARAM_ATOL + DP_RTOL * v.abs())).max().item()
+                  for k, v in wp.items())
+    p_abs = max((gp[k].to(v.device) - v).abs().max().item() for k, v in wp.items())
+    same_cm = torch.equal(gcm.cpu(), copies * wcm.cpu())
+    ok = m_ratio <= 1.0 and p_ratio <= 1.0 and same_cm
+    say(f"{label}: metrics at {m_ratio:.3g} of their tolerance, parameters at {p_ratio:.3g} (max "
+        f"abs diff {p_abs:.3e}), confusion matrix equal: {same_cm} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the parallel step disagrees with its reference")
+
+
+def dp_null_finite(cfg, pack, dev, tag):
+    """A null pack's losses and gradients through the fused kernels: finite."""
+    from building_gan_torch.data.pipeline import null_like
+    from building_gan_torch.ops.gat_train import build_planes
+    from building_gan_torch.train.step import make_update_losses
+
+    state = dp_state(cfg, dev)
+    critic_loss, generator_loss = make_update_losses(cfg, state)
+    null, gen = null_like(pack), torch.Generator(device=dev).manual_seed(0)
+    planes = build_planes(null.cell_mask, null.gid, null.grid_shape)
+    before = launches_here()
+    with torch.autograd.set_multithreading_enabled(False):  # the backward counted here, as the step
+        d_loss = critic_loss(null, planes, gen)
+        d_loss.backward()
+        g_loss, aux, _ = generator_loss(null, planes, gen)
+        g_loss.backward(inputs=list(state.generator.parameters()))
+    dev_sync(dev)
+    got = tuple(b - a for a, b in zip(before, launches_here()))
+    bad = [k for m in ("generator", "discriminator") for k, p in getattr(state, m).named_parameters()
+           if p.grad is None or not torch.isfinite(p.grad).all().item()]
+    finite = (torch.isfinite(d_loss).item() and torch.isfinite(g_loss).item()
+              and all(torch.isfinite(v).item() for v in aux.values()))
+    say(f"dp ({tag}): a null pack (0 real cells) through the kernels: d_loss {d_loss.item():.5f}, "
+        f"g_loss {g_loss.item():.5f}, launches (hourglass, forward, backward, bytes) {got}; "
+        f"losses finite {finite}, non-finite gradients {len(bad)}")
+    if not finite or bad or (null.cell_mask.is_cuda and min(got[1:3]) < 1):
+        raise AssertionError(f"dp ({tag}): a null pack's losses or gradients are not finite "
+                             f"through the kernels ({bad[:3]})")
+
+
+def dp_allreduce_ms(cfg, state, group, dev, reps=5):
+    """(ms, bytes) of one step's gradient all-reduces alone: N_CRITIC of the critic's f64
+    buffer and one of the generator's (gradients, losses and w), host clock around
+    synchronised reps."""
+    import torch.distributed as dist
+
+    nd = sum(p.numel() for p in state.discriminator.parameters()) + 2
+    ng = sum(p.numel() for p in state.generator.parameters()) + 8
+    f64 = torch.float64
+    bufs = ([torch.zeros(nd, device=dev, dtype=f64) for _ in range(cfg.N_CRITIC)]
+            + [torch.zeros(ng, device=dev, dtype=f64)])
+    for b in bufs:
+        dist.all_reduce(b, group=group)
+    dev_sync(dev)
+    t = time.perf_counter()
+    for _ in range(reps):
+        for b in bufs:
+            dist.all_reduce(b, group=group)
+    dev_sync(dev)
+    return (time.perf_counter() - t) * 1e3 / reps, 8 * (cfg.N_CRITIC * nd + ng)
+
+
+def dp_check_runs(label, runs, want, ref_keys, launches_want, copies=1):
+    """Every rank's step 1 against ``want``, and every step's launches."""
+    for r, o in enumerate(runs):
+        dp_close(f"{label} rank {r}", (o["metrics"], o["params"], o["cm"]), want, ref_keys, copies)
+        if any(tuple(got) != tuple(launches_want) for got in o["launches"]):
+            raise AssertionError(f"{label} rank {r}: launches {o['launches']} a step, expected "
+                                 f"{launches_want}")
+
+
+def dp_replicas_equal(label, runs):
+    same = all(torch.equal(o["final"][k].cpu(), v.cpu()) for o in runs[1:]
+               for k, v in runs[0]["final"].items())
+    say(f"{label}: every rank's parameters equal bit for bit after {DP_STEPS} steps: {same}")
+    if not same:
+        raise AssertionError(f"{label}: the replicas drifted apart")
+
+
+def dp_shared_card(cfg, packs, dev, card, tag):
+    """Two ranks on one card, threads of this process over a gloo group (CUDA tensors):
+    (a) the same pack on both, (b) a pack and a null pack, each against the one-device
+    step; (c) the two uneven packs against the oracle, 3 steps, the replicas equal;
+    launches a rank; a null pack through the kernels.  -> (reference, oracle)."""
+    from building_gan_torch.data.pipeline import null_like
+    from building_gan_torch.parallel import mesh
+
+    p0, p1 = packs
+    null = null_like(p0)
+    want_launches = step_launches(cfg, dp_state(cfg, dev))
+    ref = dp_one_device(cfg, p0, dev)
+    say(f"dp ({tag}): the one-device step repeats bit for bit: {dp_repeats(cfg, p0, dev)}")
+    oracle = dp_oracle(cfg, [p0, p1], dev)
+
+    def run(mine, steps):
+        return mesh.thread_ranks(2, lambda r, g: dp_rank_run(cfg, mine[r], dev, g, steps))
+
+    ra, rb, rc = run([p0, p0], 1), run([p0, null], 1), run([p0, p1], DP_STEPS)
+    label = f"dp ({tag}, 2 gloo ranks on one card)"
+    dp_check_runs(f"{label} (a) the same pack on both", ra, ref, DP_KEYS, want_launches, 2)
+    dp_check_runs(f"{label} (b) a pack and a null pack", rb, ref, DP_KEYS, want_launches)
+    dp_check_runs(f"{label} (c) packs of {rc[0]['cells']} and {rc[1]['cells']} real cells against "
+                  "the oracle", rc, oracle, DP_UNEVEN_KEYS, want_launches)
+    dp_replicas_equal(label, rc)
+    dp_null_finite(cfg, p0, dev, tag)
+    ar = mesh.thread_ranks(2, lambda r, g: dp_allreduce_ms(cfg, rc[r]["state"], g, dev))
+    step_ms = float(np.mean([np.mean(o["ms"][1:]) for o in rc]))
+    cells = sum(o["cells"] for o in rc)
+    say(f"{label}: launches a rank a step (hourglass, forward, backward, bytes) "
+        f"{tuple(rc[0]['launches'][0])} (expect {tuple(want_launches)}); step {step_ms:.1f} ms "
+        f"(steps 2-{DP_STEPS}, mean over ranks), {cells / (step_ms / 1e3):.1f} real voxel nodes/s "
+        f"summed over ranks; all-reduce {max(a[0] for a in ar):.2f} ms a step ({ar[0][1] / 2**20:.2f} "
+        f"MiB, gloo over CUDA tensors) on {card} (two ranks on one card: correctness, not scaling)")
+    del ra, rb, rc
+    return ref, oracle
+
+
+def dp_nccl_one_rank(cfg, packs, ref, one_ms, dev, card, tag):
+    """NCCL at one rank in this process: init, two steps (step 1 against the one-device
+    step), the weighted all-reduce timed, the step's host syncs against the one-device step's."""
+    import os
+
+    from building_gan_torch.parallel import dp, mesh
+    from building_gan_torch.train.step import make_train_step
+
+    with tempfile.TemporaryDirectory(prefix="bgt_nccl_") as d:
+        t = time.perf_counter()
+        group = mesh.init_data_group(0, 1, os.path.join(d, "store"), "cuda")
+        s_init = time.perf_counter() - t
+        try:
+            o = dp_rank_run(cfg, packs[0], dev, group, 2)
+            dp_close(f"dp ({tag}, NCCL, 1 rank) against one device",
+                     (o["metrics"], o["params"], o["cm"]), ref, DP_KEYS)
+            ar_ms, nbytes = dp_allreduce_ms(cfg, o["state"], group, dev)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            step_dp = dp.make_parallel_train_step(cfg, o["state"], group)
+            step_1 = make_train_step(cfg, o["state"])
+            _, syncs_dp, where = count_syncs(lambda: step_dp(packs[0], gen))
+            _, syncs_1, _ = count_syncs(lambda: step_1(packs[0], gen))
+        finally:
+            mesh.destroy_data_group()
+    say(f"dp ({tag}, NCCL, 1 rank): init {s_init:.2f} s, step {o['ms'][1]:.1f} ms (one device "
+        f"{one_ms:.1f} ms), launches "
+        f"{tuple(o['launches'][1])}; all-reduce {ar_ms:.3f} ms a step ({nbytes / 2**20:.2f} MiB); "
+        f"host syncs a step {syncs_dp} (one device: {syncs_1}) {dict(where.most_common(3))} on {card}")
+    if syncs_dp > syncs_1:
+        raise AssertionError(f"the NCCL step syncs the host {syncs_dp} times, one device {syncs_1}")
+
+
+def dp_card_rank(rank, n, store, cfgs, packs, out_dir, device_type):
+    """One rank a card (a spawned process): for each dtype, (a), (b) and (c) as on one card
+    with n ranks (null packs beyond the real ones), saved to out_dir/rank{rank}.pt."""
+    import os
+
+    from building_gan_torch.data.pipeline import null_like
+    from building_gan_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = mesh.init_data_group(rank, n, store, device_type)
+    dev = mesh.rank_device(rank, device_type)
+    try:
+        p0, p1 = (p.to(dev) for p in packs)
+        null = null_like(p0)
+        mine = {"a": p0, "b": p0 if rank == 0 else null, "c": (p0, p1, null)[min(rank, 2)]}
+        res = {}
+        for tag, cfg in cfgs.items():
+            res[(tag, "repeats")] = dp_repeats(cfg, p0, dev)
+            for name, steps in (("a", 2), ("b", 1), ("c", DP_STEPS)):
+                o = dp_rank_run(cfg, mine[name], dev, group, steps)
+                if name == "c":
+                    o["allreduce"] = dp_allreduce_ms(cfg, o["state"], group, dev)
+                del o["state"]
+                o["params"] = {k: v.cpu() for k, v in o["params"].items()}
+                o["final"] = {k: v.cpu() for k, v in o["final"].items()}
+                res[(tag, name)] = o
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        mesh.destroy_data_group()
+
+
+def dp_last_card(batch, n, card):
+    """The three kernels on the last card while the current device stays card 0: each
+    against its plain version by the f64 rules (the generator's training stack whole,
+    forward and backward, at f32 on 8 slots; the hourglass), the Philox bytes bit for bit,
+    and the stack's results equal bit for bit to the same call's on card 0."""
+    from building_gan_torch.ops import dropout as drop
+    from building_gan_torch.ops import gat_train as gt
+    from building_gan_torch.ops import hourglass as hg
+
+    last = torch.device("cuda", n - 1)
+    if torch.cuda.current_device() != 0:
+        raise AssertionError("the current device is not card 0")
+    grid, K = batch.grid_shape, batch.graphs_per_slot
+    gen = torch.Generator().manual_seed(21)
+    (Ws, atts, vecs), chans = perturbed_stack(128, 7, gen, "cpu")
+    keys = drop.draw_keys(len(chans), torch.Generator().manual_seed(22))
+    B, R = 8, math.prod(grid)
+    x = torch.randn(B, R, 128, generator=gen)
+    gy = torch.randn(B, R, 128, generator=gen)
+    before = (hg.launches.value, gt.fwd_launches.value, gt.bwd_launches.value, gt.bytes_launches.value)
+    results = {}
+    for dev in (torch.device("cuda", 0), last):
+        mask, gid = batch.mask[:B].to(dev), batch.gid[:B].to(dev)
+        planes = gt.build_planes(mask, gid, grid)
+        leaves = [t.to(dev) for t in (x, Ws, atts, vecs)]
+        fused, plain = stack_fns(planes, keys.to(dev), grid, K, chans)
+        got = with_grads(fused, leaves, gy.to(dev))
+        results[dev.index] = got
+        if dev == last:
+            if got[0].device != last or torch.cuda.current_device() != 0:
+                raise AssertionError("the stack's output is not on the last card")
+            want = with_grads(plain, leaves, gy.to(dev))
+            want64 = with_grads(plain, [t.double() for t in leaves], gy.to(dev).double())
+            label = f"dp last card (cuda:{last.index}) generator stack (8 slots, K={K})"
+            hold(label, ("y",), got[:1], want[:1], want64[:1])
+            hold(label, GRAD_NAMES, got[1], want[1], want64[1])
+            xh = torch.randn(B, *grid, 128, generator=gen).to(dev)
+            m5 = mask.reshape(B, *grid).contiguous()
+            args = (xh, m5, Ws.to(dev), atts.to(dev), vecs.to(dev), chans, None, 1)
+            ok, report, _ = f64_rule(hg.hourglass_cuda(*args), hg.hourglass_plain(*args),
+                                     hg.hourglass_plain(*(a.double() if torch.is_tensor(a)
+                                                          and a.is_floating_point() else a
+                                                          for a in args)))
+            say(f"dp last card (cuda:{last.index}) hourglass {report}")
+            nb = B * R * 128
+            same_bytes = torch.equal(gt.dropout_bytes_cuda(nb, keys[0].to(dev)).to(torch.int64),
+                                     drop.random_bytes(torch.arange(nb, device=dev), keys[0].to(dev)))
+            if not ok or not same_bytes:
+                raise AssertionError(f"a kernel on cuda:{last.index} disagrees with its plain version")
+    a, b = results[0], results[last.index]
+    same = torch.equal(a[0].cpu(), b[0].cpu()) and all(torch.equal(u.cpu(), v.cpu())
+                                                        for u, v in zip(a[1], b[1]))
+    after = (hg.launches.value, gt.fwd_launches.value, gt.bwd_launches.value, gt.bytes_launches.value)
+    say(f"dp last card: launches {tuple(y - x_ for x_, y in zip(before, after))} (hourglass, forward, "
+        f"backward, bytes) with card 0 current; the stack on cuda:{last.index} equal to cuda:0's "
+        f"bit for bit: {same}; Philox bytes equal: {same_bytes} on {card}")
+    if not same:
+        raise AssertionError("the kernels give other results on the last card than on card 0")
+
+
+def dp_cli(n, grid_flags, root, card):
+    """train --mesh-data n --epochs 1, then test --mesh-data n, through the CLI."""
+    import os
+    import re
+
+    from building_gan_torch.checkpoint import ckpt
+
+    run = os.path.join(root, f"run_dp{n}")
+    common = grid_flags + ["--log-dir", run, "--compute-dtype", "float32", "--mesh-data", str(n)]
+    out, s_train = run_cli(["train", "--epochs", "1"] + common, f"train --mesh-data {n}")
+    epochs = epoch_lines(out)
+    out_t, s_test = run_cli(["test", "--num-samples-to-viz", "0"] + common, f"test --mesh-data {n}")
+    test = {k: float(v) for k, v in re.findall(r"(\w+_test): (\S+)", out_t)}
+    say(f"dp CLI: train --mesh-data {n} --epochs 1 {s_train:.1f} s (processes included): epoch 1 "
+        + ", ".join(f"{k} {v:.4f}" for k, v in epochs.get(1, {}).items())
+        + f"; test --mesh-data {n} {s_test:.1f} s: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in test.items()) + f" on {card}")
+    if (sorted(epochs) != [1] or out.count("epoch 1:") != 1 or not ckpt.exists(run)
+            or set(test) != set(TEST_METRICS) or not all(np.isfinite(v) for v in test.values())
+            or out_t.count("f1_score_test") != 1):
+        raise AssertionError(f"the CLI at --mesh-data {n} did not train and test as expected")
+
+
+def dp_cards(cfgs, packs, refs, grid_flags, root, dev, card):
+    """NCCL with one rank a card on 2 to 4 cards: the checks of ``dp_shared_card`` with n
+    ranks, the kernels on the last card, times, and the CLI at --mesh-data n."""
+    import os
+
+    n = min(torch.cuda.device_count(), DP_MAX_CARDS)
+    out_dir = tempfile.mkdtemp(prefix="bgt_dp_cards_", dir=root)
+    t = time.perf_counter()
+    torch.multiprocessing.spawn(dp_card_rank, nprocs=n, join=True, args=(
+        n, os.path.join(out_dir, "store"), cfgs, packs, out_dir, dev.type))
+    s_spawn = time.perf_counter() - t
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(n)]
+    for tag, cfg in cfgs.items():
+        ref, oracle = refs[tag]
+        want_launches = step_launches(cfg, dp_state(cfg, dev))
+        label = f"dp ({tag}, NCCL, {n} ranks, one a card)"
+        say(f"{label}: each rank's one-device step repeats bit for bit: "
+            f"{[r[(tag, 'repeats')] for r in ranks]}")
+        dp_check_runs(f"{label} (a) the same pack on each", [r[(tag, "a")] for r in ranks], ref,
+                      DP_KEYS, want_launches, n)
+        dp_check_runs(f"{label} (b) a pack and {n - 1} null packs", [r[(tag, "b")] for r in ranks],
+                      ref, DP_KEYS, want_launches)
+        rc = [r[(tag, "c")] for r in ranks]
+        dp_check_runs(f"{label} (c) the two uneven packs and {n - 2} null packs against the oracle",
+                      rc, oracle, DP_UNEVEN_KEYS, want_launches)
+        dp_replicas_equal(label, rc)
+        ra = [r[(tag, "a")] for r in ranks]
+        step_ms = max(o["ms"][1] for o in ra)
+        cells = sum(o["cells"] for o in ra)
+        ar = max(o["allreduce"][0] for o in rc)
+        say(f"{label}: step {step_ms:.1f} ms (step 2 of (a), the slowest rank; one card's "
+            f"{refs['ms'][tag]:.1f}), {cells / (step_ms / 1e3):.1f} real voxel nodes/s summed over "
+            f"ranks ({n} packs of {ra[0]['cells']}); all-reduce {ar:.3f} ms a step "
+            f"({rc[0]['allreduce'][1] / 2**20:.2f} MiB) on {card}")
+    say(f"dp: {n} rank processes {s_spawn:.1f} s (start, both dtypes' checks)")
+    dp_last_card(packs[0], n, card)
+    dp_cli(n, grid_flags, root, card)
+
+
+def dp_data(root):
+    """TRAINER_BUILDINGS real-scale buildings as JSON, preprocessed by the CLI; -> grid flags."""
+    import os
+
+    raw, npz = os.path.join(root, "raw"), os.path.join(root, "npz")
+    max_local = write_raw(raw, TRAINER_BUILDINGS)
+    run_cli(["preprocess", "--data-path", raw, "--save-data-path", npz], "preprocess")
+    local_nodes = int(math.ceil(TRAINER_SLOT_GRAPHS * max_local / 64.0)) * 64
+    return ["--save-data-path", npz, "--device", "cuda", "--slot-graphs", str(TRAINER_SLOT_GRAPHS),
+            "--grid-local-nodes", str(local_nodes)]
+
+
+def dp_trainer(grid_flags, root, dev, card):
+    """Two ranks as threads on one card, each a ``Trainer`` with its gloo group on the
+    processed buildings at GRID_BATCH DP_SLOTS, f32: one epoch (rank 0 writes the
+    checkpoint and the scalar log), then ``test()``; the replicas and scores alike, and
+    each rank's eval launches counted."""
+    import os
+
+    from building_gan_torch.checkpoint import ckpt
+    from building_gan_torch.config import Configuration
+    from building_gan_torch.data.pipeline import GraphDataLoaders
+    from building_gan_torch.models.grid_models import GridVoxelGNNDiscriminator, GridVoxelGNNGenerator
+    from building_gan_torch.parallel import mesh
+    from building_gan_torch.train.trainer import Trainer
+
+    flags = dict(zip(grid_flags[::2], grid_flags[1::2]))
+    cfg = Configuration(SAVE_DATA_PATH=flags["--save-data-path"], COMPUTE_DTYPE="float32", EPOCHS=1,
+                        GRID_SLOT_GRAPHS=int(flags["--slot-graphs"]), MESH_DATA=2,
+                        GRID_LOCAL_NODES=int(flags["--grid-local-nodes"]), GRID_BATCH=DP_SLOTS)
+    run = os.path.join(root, "run_dp_threads")
+
+    def rank(r, group):
+        with DP_INIT_LOCK:
+            torch.manual_seed(cfg.SEED)
+            gen, disc = GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg)
+        tr = Trainer(gen, disc, GraphDataLoaders(cfg, n_device_batches=2, rank=r), cfg,
+                     log_dir=run, device=dev, group=group)
+        t = time.perf_counter()
+        tr.train()
+        s_train = time.perf_counter() - t
+        before = launches_here()
+        scores = tr.test()
+        launches = tuple(b - a for a, b in zip(before, launches_here()))
+        groups = -(-tr.dataloaders.test_dataloader.num_packs_per_epoch() // 2)
+        per_batch = (1, len(tr.discriminator.encoder.channels)) if dev.type == "cuda" else (0, 0)
+        return (s_train, scores, dp_params(tr.state, "cpu"), tr.state.step, launches,
+                (groups * per_batch[0], groups * per_batch[1], 0, 0))
+
+    res = mesh.thread_ranks(2, rank)
+    logs = [f for f in os.listdir(run) if f.startswith("events.out.tfevents") or f == "scalars.jsonl"]
+    same = all(torch.equal(res[1][2][k], v) for k, v in res[0][2].items())
+    alike = res[0][1] == res[1][1] and res[0][3] == res[1][3]
+    want = res[0][5]
+    say(f"dp Trainer (2 gloo ranks on one card, f32): one epoch {res[0][0]:.1f} / {res[1][0]:.1f} s, "
+        f"{res[0][3]} step(s); checkpoint {ckpt.exists(run)}, scalar logs {len(logs)}; replicas "
+        f"equal bit for bit {same}; test scores alike on both ranks {alike}: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in res[0][1].items())
+        + f"; test's launches a rank (hourglass, forward, backward, bytes) {res[0][4]} / "
+        f"{res[1][4]} (expect {want}: one hourglass and the critic's layers a batch) on {card}")
+    if not (ckpt.exists(run) and len(logs) == 1 and same and alike and res[0][4] == res[1][4] == want
+            and all(np.isfinite(v) for v in res[0][1].values())):
+        raise AssertionError("the data-parallel Trainer on one card did not run as expected")
+
+
+def dp_phase(cfg_t, grid_flags, root, dev, card):
+    """Phase 13 (``--dp`` runs it alone): data parallelism at the config of record."""
+    from building_gan_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    cfg, packs = dp_packs(cfg_t)
+    cfgs = {"float32": cfg, "bfloat16": cfg.replace(COMPUTE_DTYPE="bfloat16")}
+    packs_dev = [p.to(dev) for p in packs]
+    say(f"dp: the train batch's {sum(int(p.cell_mask.amax((1, 2, 3)).gt(0).sum()) for p in packs)} "
+        f"slots as two packs of {DP_SLOTS} (real cells {[int(p.cell_mask.sum()) for p in packs]})")
+    refs = {"ms": {}}
+    for tag, c in cfgs.items():
+        refs[tag] = dp_shared_card(c, packs_dev, dev, card, tag)
+        step = make_train_step(c, dp_state(c, dev))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        step(packs_dev[0], gen)
+        refs["ms"][tag] = wall_ms(lambda: step(packs_dev[0], gen))[1]
+        dp_nccl_one_rank(c, packs_dev, refs[tag][0], refs["ms"][tag], dev, card, tag)
+    dp_trainer(grid_flags, root, dev, card)
+    say(f"phase: dp on one card {time.perf_counter() - t_phase:.1f} s")
+    n = torch.cuda.device_count()
+    if n < 2:
+        say(f"dp: NCCL across cards did not run: this host has {n} CUDA device (needs 2 to "
+            f"{DP_MAX_CARDS}; `python3 chip_smoke.py --dp` on such a host runs it)")
+        return
+    t_phase = time.perf_counter()
+    dp_cards(cfgs, packs, refs, grid_flags, root, dev, card)
+    say(f"phase: dp across {min(n, DP_MAX_CARDS)} cards {time.perf_counter() - t_phase:.1f} s")
+
+
+def dp_only() -> int:
+    """``python3 chip_smoke.py --dp``: only phase 13 (builds the kernels, packs the train
+    batch and writes its own processed buildings for the Trainer and the CLI), then the
+    result line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from building_gan_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+    card = card_line()
+    say(card)
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
+    _build.build_all(("hourglass", "gat_train"))
+    cfg_t = train_cfg()
+    root = tempfile.mkdtemp(prefix="bgt_dp_")
+    try:
+        dp_phase(cfg_t, dp_data(root), root, dev, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say(f"total: {time.perf_counter() - t_start:.1f} s")
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def serve(cfg, samples, seeds, dev, card, requests=REQUESTS, clients=CLIENTS):
     """The serving main path at cfg's dtype and conv: InferenceServer at the config of record,
     weights from torch.manual_seed(7), ``requests`` requests from ``clients`` threads;
@@ -2887,10 +3493,14 @@ def main() -> int:
         # 12. the reference's other surfaces: sanity and the kernels on one slot, best-of-k,
         # analyze and ingest, the bf16 step's roofline share
         surfaces_phase(cfg_tb, batch_t, turns_ms["bfloat16"], grid_flags, root, dev, card)
+
+        # 13. data parallelism: two gloo ranks sharing the card, NCCL at one rank, and on a
+        # host of several cards NCCL at one rank a card with the CLI's --mesh-data
+        dp_phase(cfg_t, grid_flags, root, dev, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # 13. kernels line: the training kernels' times are one generator stack
+    # 14. kernels line: the training kernels' times are one generator stack
     # (14 layer launches) at the step's shapes; each kernel at f32 and at bf16 storage,
     # launches from that dtype's main path (the server's, 3 train steps)
     kernels = []
@@ -2924,7 +3534,7 @@ def main() -> int:
     say(f"total: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
 
-    # 14. result line, last
+    # 15. result line, last
     if any(srv._thread.is_alive() for srv in servers) or any(th.is_alive() for th in threads):
         raise AssertionError("a server or client thread is still running")
     say(json.dumps({"ok": True, "device": {
@@ -2972,6 +3582,8 @@ def steps_only(n: int) -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--steps":
         sys.exit(steps_only(int(sys.argv[2])))
+    if len(sys.argv) == 2 and sys.argv[1] == "--dp":
+        sys.exit(dp_only())
     if len(sys.argv) in (2, 3) and sys.argv[1] == "--time-hourglass":
         sys.exit(time_hourglass_only(sys.argv[2] if len(sys.argv) == 3 else None))
     sys.exit(main())

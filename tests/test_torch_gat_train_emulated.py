@@ -116,8 +116,28 @@ def _case(rng, B, F, Y, X, hidden, repeat, K, rate):
 )
 def test_emulated_layer_matches_plain(emulated_lib, B, F, Y, X, hidden, repeat, K, rate):
     rng = np.random.default_rng(hidden + 7 * K)
-    grid, Ws, atts, vecs, chans, planes, keys, levels, x = _case(rng, B, F, Y, X, hidden, repeat,
-                                                                 K, rate)
+    _hold_layers(emulated_lib, rng, K, *_case(rng, B, F, Y, X, hidden, repeat, K, rate))
+
+
+@pytest.mark.parametrize("K", [1, 3])
+def test_emulated_all_masked_slot_matches_plain(emulated_lib, K):
+    """A slot with no real row, as a data-parallel null fill pack's: its GraphNorm row
+    counts are 0, which the kernels clamp to 1 as layer_plain does, so every output and
+    gradient is finite (0 x a NaN would poison the ranks' gradient all-reduce); held
+    to layer_plain as above, the other slot real."""
+    rng = np.random.default_rng(40 + K)
+    grid, Ws, atts, vecs, chans, _, keys, levels, x = _case(rng, 2, 2, 4, 5, 8, 1, K, 0.2)
+    mask = torch.from_numpy((rng.random((2, 2 * 4 * 5)) < 0.7).astype(np.float32))
+    mask[1] = 0.0
+    gid = torch.from_numpy(rng.integers(0, K, mask.shape)) * mask.long() if K > 1 else None
+    planes = gt.build_planes(mask, gid, grid)
+    _hold_layers(emulated_lib, rng, K, grid, Ws, atts, vecs, chans, planes, keys, levels, x)
+
+
+def _hold_layers(emulated_lib, rng, K, grid, Ws, atts, vecs, chans, planes, keys, levels, x):
+    """Each layer of the stack, forward and backward, against layer_plain in f64."""
+    B = x.shape[0]
+    hidden = x.shape[-1]
     for l, (ci, co) in enumerate(chans):
         key = keys[l] if levels else None
         meta = (ci, co, K, levels, grid, 0.2, 1e-5)

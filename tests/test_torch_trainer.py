@@ -14,8 +14,8 @@
   14 tags for every epoch in the JSON-lines log (tensorboardX hidden), the
   step count continued, and ``test()`` finite.
 - The CLI's synth -> preprocess -> train -> test in process on the CPU, the
-  same at ``--layout edges`` and at each other ``--conv-type``, and the flags
-  it refuses.
+  same at ``--layout edges`` and at each other ``--conv-type``
+  (``--mesh-data``: tests/test_torch_parallel.py).
 """
 
 import sys
@@ -373,12 +373,3 @@ def test_cli_trains_and_tests_edges_and_other_convs(flags, cli_data, tiny_cli, t
     out = capsys.readouterr().out
     values = [float(ln.split(":")[1]) for ln in out.splitlines() if "_test:" in ln]
     assert len(values) == 5 and all(np.isfinite(v) for v in values)
-
-
-@pytest.mark.parametrize("flags,match", [
-    (["--mesh-data", "2"], "Queue A item 6"),
-], ids=lambda v: v if isinstance(v, str) else v[0])
-def test_cli_refuses_what_the_port_lacks(flags, match, tmp_path):
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(["train", "--save-data-path", str(tmp_path), "--compute-dtype", "float32",
-                  "--device", "cpu"] + flags)
