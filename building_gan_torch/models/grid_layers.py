@@ -18,12 +18,15 @@ carry the same names, so one ``state_dict`` loads into both layouts.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops import dropout, stencil
 from ..ops.hourglass import hourglass_channel_pairs
+from ..parallel import sp as floor
 from .layers import Dense, conv_class, glorot_att, hourglass_channels
 
 
@@ -37,6 +40,7 @@ def graph_norm(
     gid: torch.Tensor | None = None,  # (B, R) building index within the slot
     num_graphs: int = 1,
     batch_level: bool = False,
+    sp: floor.FloorShard | None = None,
 ) -> torch.Tensor:
     """GraphNorm with learned mean scale, statistics per slot or per (slot, gid), or
     (``batch_level``, the reference's quirk Q5) over every masked cell of the batch.
@@ -53,16 +57,22 @@ def graph_norm(
     as the fused kernels do: squares rounded to bf16 can make a near-constant
     building's variance 0, and its gradient penalty ~1e6 (one 2-cell
     building of a K = 6 slot did).
+
+    With a floor shard ``sp`` the sums and counts are this rank's partial ones, summed
+    over the ranks (one f32 all-reduce) before the moments.
     """
     dt = torch.promote_types(x.dtype, torch.float32)
     m = mask.to(dt)[..., None]
     if gid is not None and num_graphs > 1 and not batch_level:
         oh = F.one_hot(gid.long().clamp(min=0), num_graphs).to(dt)
         oh = oh * ((gid >= 0) & (gid < num_graphs)).to(dt)[..., None] * m  # (B, R, K)
-        counts = oh.sum(dim=1).clamp(min=1.0)  # (B, K)
+        counts = oh.sum(dim=1)  # (B, K)
         xf = x.to(dt)
         s1 = torch.einsum("brk,brc->bkc", oh, xf)
         s2 = torch.einsum("brk,brc->bkc", oh, xf * xf)
+        if sp is not None:
+            s1, s2, counts = floor.all_reduce_sum(sp, s1, s2, counts)
+        counts = counts.clamp(min=1.0)
         mean = s1 / counts[..., None]
         ex2 = s2 / counts[..., None]
         s = mean * mean_scale
@@ -73,11 +83,16 @@ def graph_norm(
         t = torch.einsum("brk,bkc->brc", oh, both.to(dt)).to(x.dtype)
         C = inv.shape[-1]
         return x * t[..., :C] + t[..., C:]
-    xf = x.to(dt)
     axes = (0, 1) if batch_level else (1,)  # the batch's cells, or each slot's
-    denom = mask.to(dt).sum(dim=axes, keepdim=True)[..., None].clamp(min=1.0)
-    mean = (xf * m).sum(dim=axes, keepdim=True) / denom
-    ex2 = (xf * xf * m).sum(dim=axes, keepdim=True) / denom
+    denom = mask.to(dt).sum(dim=axes, keepdim=True)[..., None]
+    xf = x.to(dt)
+    s1 = (xf * m).sum(dim=axes, keepdim=True)
+    s2 = (xf * xf * m).sum(dim=axes, keepdim=True)
+    if sp is not None:
+        s1, s2, denom = floor.all_reduce_sum(sp, s1, s2, denom)
+    denom = denom.clamp(min=1.0)
+    mean = s1 / denom
+    ex2 = s2 / denom
     s = mean * mean_scale
     var = torch.clamp(ex2 - 2.0 * s * mean + s * s, min=0.0)
     inv = weight * torch.rsqrt(var + eps)
@@ -94,10 +109,11 @@ class GridGraphNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.mean_scale = nn.Parameter(torch.ones(features))
 
-    def forward(self, x, mask, gid=None, num_graphs: int = 1, batch_level: bool = False):
+    def forward(self, x, mask, gid=None, num_graphs: int = 1, batch_level: bool = False,
+                sp=None):
         return graph_norm(
             x, mask, self.weight, self.bias, self.mean_scale, self.eps, gid, num_graphs,
-            batch_level,
+            batch_level, sp,
         )
 
 
@@ -118,7 +134,7 @@ class GridGATConv(nn.Module):
         self.att_dst = glorot_att(features)
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x, mask, grid_shape, gid=None):
+    def forward(self, x, mask, grid_shape, gid=None, sp=None):
         w = self.lin.weight.t()  # (in, out)
         C = w.shape[1]
         wa = torch.cat(
@@ -126,10 +142,10 @@ class GridGATConv(nn.Module):
         ).to(x.dtype)
         ha = x @ wa
         h = ha[..., :C]
-        out = stencil.stencil_gat_flat(
-            h, ha[..., C], ha[..., C + 1], mask, grid_shape,
-            negative_slope=self.negative_slope, gid=gid,
-        )
+        fn = stencil.stencil_gat_flat if sp is None else functools.partial(
+            floor.stencil_gat_sp, sp=sp)
+        out = fn(h, ha[..., C], ha[..., C + 1], mask, grid_shape,
+                 negative_slope=self.negative_slope, gid=gid)
         return out + self.bias.to(out.dtype)
 
 
@@ -148,11 +164,11 @@ class GridGATv2Conv(nn.Module):
         self.att = glorot_att(features)
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x, mask, grid_shape, gid=None):
-        out = stencil.stencil_gatv2_flat(
-            self.lin_l(x), self.lin_r(x), self.att.reshape(-1), mask, grid_shape,
-            negative_slope=self.negative_slope, gid=gid,
-        )
+    def forward(self, x, mask, grid_shape, gid=None, sp=None):
+        fn = stencil.stencil_gatv2_flat if sp is None else functools.partial(
+            floor.stencil_gatv2_sp, sp=sp)
+        out = fn(self.lin_l(x), self.lin_r(x), self.att.reshape(-1), mask, grid_shape,
+                 negative_slope=self.negative_slope, gid=gid)
         return out + self.bias.to(out.dtype)
 
 
@@ -164,8 +180,10 @@ class GridGCNConv(nn.Module):
         self.lin = Dense(in_features, features, bias=False)
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x, mask, grid_shape, gid=None):
-        out = stencil.stencil_gcn_flat(self.lin(x), mask, grid_shape, gid=gid)
+    def forward(self, x, mask, grid_shape, gid=None, sp=None):
+        fn = stencil.stencil_gcn_flat if sp is None else functools.partial(
+            floor.stencil_gcn_sp, sp=sp)
+        out = fn(self.lin(x), mask, grid_shape, gid=gid)
         return out + self.bias.to(out.dtype)
 
 
@@ -184,9 +202,10 @@ class GridGraphConv(nn.Module):
         self.lin_rel = Dense(in_features, features)
         self.lin_root = Dense(in_features, features, bias=False)
 
-    def forward(self, x, mask, grid_shape, gid=None):
-        agg = stencil.stencil_sum_flat(F.linear(x, self.lin_rel.weight.to(x.dtype)), mask,
-                                       grid_shape, gid=gid)
+    def forward(self, x, mask, grid_shape, gid=None, sp=None):
+        fn = stencil.stencil_sum_flat if sp is None else functools.partial(
+            floor.stencil_sum_sp, sp=sp)
+        agg = fn(F.linear(x, self.lin_rel.weight.to(x.dtype)), mask, grid_shape, gid=gid)
         h_self = F.linear(x, self.lin_root.weight.to(x.dtype), self.lin_rel.bias.to(x.dtype))
         return h_self + agg
 
@@ -236,21 +255,30 @@ class GridHourglass(nn.Module):
             yield getattr(self, f"module_{4 * i}"), getattr(self, f"module_{4 * i + 1}")
 
     def forward(self, x, mask, grid_shape, gid=None, num_graphs: int = 1,
-                deterministic: bool = True, keys: torch.Tensor | None = None):
+                deterministic: bool = True, keys: torch.Tensor | None = None, sp=None):
         """x (B, R, hidden) on the flattened-row layout -> (B, R, hidden).
 
         ``keys`` (L, 2) int64: the per-layer Philox keys, needed when
-        ``deterministic`` is False and the rate is above 0.
+        ``deterministic`` is False and the rate is above 0.  With a floor shard
+        ``sp`` (``parallel/sp.py``) x, mask and gid are this rank's floors
+        (``grid_shape`` theirs): the convs run their halo stencils, the norms sum
+        their statistics over the ranks, and the dropout masks are the slot's own
+        at this rank's rows.
         """
         drop_on = not deterministic and dropout.drop_levels(self.dropout_rate) > 0
         if drop_on and keys is None:
             raise ValueError("training-mode dropout needs per-layer Philox keys")
+        rows = None
+        if sp is not None:
+            sp = sp.with_planes(mask, gid)  # the padded mask and gid, exchanged once
+            rows = sp.rows(grid_shape[1] * grid_shape[2])
         for i, (conv, norm) in enumerate(self.layers()):
-            x = conv(x, mask, grid_shape, gid=gid)
+            x = conv(x, mask, grid_shape, gid=gid, sp=sp)
             x = torch.relu(norm(x, mask, gid=gid, num_graphs=num_graphs,
-                                batch_level=self.batch_level_graphnorm))
+                                batch_level=self.batch_level_graphnorm, sp=sp))
             if drop_on:
-                x = dropout.dropout(x, keys[i], self.dropout_rate, width=self.hidden_dim)
+                x = dropout.dropout(x, keys[i], self.dropout_rate, width=self.hidden_dim,
+                                    rows=rows)
         return x
 
 

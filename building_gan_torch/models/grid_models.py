@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from ..config import NUM_CLASSES, Configuration
+from ..ops.gumbel import gumbel_noise as draw_gumbel
 from ..ops.gumbel import gumbel_softmax_st
 from .grid_layers import GridHourglass, grid_type_matched_pooling
 from .layers import Dense, mlp_stack
@@ -90,27 +91,36 @@ class GridVoxelGNNGenerator(nn.Module):
         return x, encoded_matched, voxel_x, z, mask, gid
 
     def decode(self, batch, encoded, x, encoded_matched, voxel_x, z, gumbel_noise=None,
-               generator: torch.Generator | None = None):
+               generator: torch.Generator | None = None, sp=None):
         final = torch.cat([encoded, x, encoded_matched, voxel_x, z], dim=-1)
         logits = self.decoder(final).float()  # the head in the compute dtype, logits in f32
         if gumbel_noise is not None:
             gumbel_noise = gumbel_noise.reshape(logits.shape)
+        elif sp is not None:  # the whole slots' draw, at this rank's rows
+            if generator is None:
+                raise ValueError("gumbel_softmax_st needs the noise or a generator")
+            plane = batch.x.shape[2] * batch.x.shape[3]
+            gumbel_noise = sp.local(draw_gumbel(sp.global_shape(logits.shape, 1, plane), generator,
+                                                device=logits.device), 1, plane)
         label_hard, label_soft = gumbel_softmax_st(logits, gumbel_noise, generator)
         shape5 = tuple(batch.x.shape[:4]) + (NUM_CLASSES,)
         return logits.reshape(shape5), label_hard.reshape(shape5), label_soft.reshape(shape5)
 
     def forward(self, batch, z, gumbel_noise=None, generator=None,
-                deterministic: bool = True, keys: torch.Tensor | None = None):
+                deterministic: bool = True, keys: torch.Tensor | None = None, sp=None):
         """``z`` (B, F, Y, X, Z_DIM); Gumbel noise given, or drawn from ``generator``.
 
         ``keys`` (L, 2): the hourglass's dropout keys when not ``deterministic``.
+        ``sp``: a floor shard (``parallel/sp.py``); batch, z and the noise are then this
+        rank's floors, and noise drawn here is the whole slots' draw at them.
         """
         x, encoded_matched, voxel_x, z, mask, gid = self.encode(batch, z)
         encoded = self.encoder(
             x, mask, batch.grid_shape, gid=gid, num_graphs=batch.graphs_per_slot,
-            deterministic=deterministic, keys=keys,
+            deterministic=deterministic, keys=keys, sp=sp,
         )
-        return self.decode(batch, encoded, x, encoded_matched, voxel_x, z, gumbel_noise, generator)
+        return self.decode(batch, encoded, x, encoded_matched, voxel_x, z, gumbel_noise, generator,
+                           sp)
 
 
 class GridVoxelGNNDiscriminator(nn.Module):
@@ -178,10 +188,12 @@ class GridVoxelGNNDiscriminator(nn.Module):
         return self.score(encoded).reshape(tuple(batch.x.shape[:4]) + (1,))
 
     def forward(self, batch, label, deterministic: bool = True,
-                keys: torch.Tensor | None = None, dtype: torch.dtype | None = None) -> torch.Tensor:
+                keys: torch.Tensor | None = None, dtype: torch.dtype | None = None,
+                sp=None) -> torch.Tensor:
+        """``sp``: a floor shard (``parallel/sp.py``); batch and label are this rank's floors."""
         x, mask, gid = self.encode(batch, label, dtype)
         encoded = self.encoder(
             x, mask, batch.grid_shape, gid=gid, num_graphs=batch.graphs_per_slot,
-            deterministic=deterministic, keys=keys,
+            deterministic=deterministic, keys=keys, sp=sp,
         )
         return self.decode(batch, encoded)

@@ -81,27 +81,36 @@ def random_bytes(index: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     return out0 & 0xFF
 
 
-def flat_index(shape, width: int, device) -> torch.Tensor:
-    """Counters of a (B, R, C) block laid out at a padded channel width ``width``."""
+def flat_index(shape, width: int, device, rows=None) -> torch.Tensor:
+    """Counters of a (B, R, C) block laid out at a padded channel width ``width``.
+
+    ``rows`` (first row, rows a slot): the block is rows ``[first, first + R)`` of
+    slots that hold more rows (a floor shard's), counted as the whole slots' are.
+    """
     B, R, C = shape
-    rows = torch.arange(B * R, device=device, dtype=torch.int64).reshape(B, R, 1)
-    return rows * width + torch.arange(C, device=device, dtype=torch.int64)
+    first, total = (0, R) if rows is None else rows
+    r = (torch.arange(B, device=device, dtype=torch.int64)[:, None] * total
+         + first + torch.arange(R, device=device, dtype=torch.int64))
+    return r[..., None] * width + torch.arange(C, device=device, dtype=torch.int64)
 
 
 def keep_mask(shape, key: torch.Tensor, levels: int, width: int | None = None,
-              device=None) -> torch.Tensor:
-    """Boolean keep mask of a (B, R, C) block: ``byte >= levels``."""
+              device=None, rows=None) -> torch.Tensor:
+    """Boolean keep mask of a (B, R, C) block: ``byte >= levels`` (``rows``: ``flat_index``)."""
     width = shape[-1] if width is None else width
     dev = key.device if device is None else device
-    return random_bytes(flat_index(shape, width, dev), key) >= levels
+    return random_bytes(flat_index(shape, width, dev, rows), key) >= levels
 
 
-def dropout(x: torch.Tensor, key: torch.Tensor, rate: float, width: int | None = None) -> torch.Tensor:
+def dropout(x: torch.Tensor, key: torch.Tensor, rate: float, width: int | None = None,
+            rows=None) -> torch.Tensor:
     """``x`` (B, R, C) with the Philox byte-threshold mask of ``key`` applied.
 
     ``width`` is the padded channel width whose flat index is the counter
     (the hourglass's widest layer), so a narrow layer draws the same bits as
-    the fused kernel, which lays every layer out at that width.
+    the fused kernel, which lays every layer out at that width.  ``rows``
+    (first row, rows a slot): x is those rows of larger slots (a floor shard's),
+    masked as they are in the whole slots.
     """
     levels = drop_levels(rate)
     if levels <= 0:
@@ -111,7 +120,7 @@ def dropout(x: torch.Tensor, key: torch.Tensor, rate: float, width: int | None =
     width = x.shape[-1] if width is None else width
     if width < x.shape[-1]:
         raise ValueError(f"padded width {width} is below the block's {x.shape[-1]} channels")
-    keep = _keep(tuple(x.shape), key, levels, width, x.device)
+    keep = _keep(tuple(x.shape), key, levels, width, x.device, rows)
     return x * keep.to(x.dtype) * _keep_scale_in(levels, x.dtype)
 
 
@@ -121,15 +130,18 @@ def _keep_scale_in(levels: int, dtype: torch.dtype) -> float:
     return torch.tensor(keep_scale(levels), dtype=dtype).item()
 
 
-def _keep(shape, key: torch.Tensor, levels: int, width: int, device) -> torch.Tensor:
+def _keep(shape, key: torch.Tensor, levels: int, width: int, device, rows=None) -> torch.Tensor:
     """``keep_mask``'s bits: on the card the bytes of the B * R * width counters come
-    from the Philox kernel, viewed as (B, R, width), the first C channels kept."""
+    from the Philox kernel, viewed as (B, R, width), the first C channels kept.  With
+    ``rows`` the kernel draws the whole slots' bytes and this block's rows are kept."""
     if device.type != "cuda":
-        return keep_mask(shape, key, levels, width, device)
+        return keep_mask(shape, key, levels, width, device, rows)
     from .gat_train import dropout_bytes_cuda  # gat_train imports this module
 
     B, R, C = shape
-    return dropout_bytes_cuda(B * R * width, key).view(B, R, width)[..., :C] >= levels
+    first, total = (0, R) if rows is None else rows
+    drawn = dropout_bytes_cuda(B * total * width, key).view(B, total, width)
+    return drawn[:, first:first + R, :C] >= levels
 
 
 def draw_keys(n: int, generator: torch.Generator) -> torch.Tensor:

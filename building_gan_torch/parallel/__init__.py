@@ -1,1 +1,2 @@
-"""Data parallelism: the process group (``mesh.py``) and the parallel steps (``dp.py``)."""
+"""Parallelism: the process group (``mesh.py``), the data-parallel steps (``dp.py``) and
+floor sharding (``sp.py``)."""

@@ -22,6 +22,11 @@ masked means in f32.
 
 Noise (the GP's eps) is passed in, or drawn from an explicit ``torch.Generator``.
 
+With a floor shard ``sp`` (``parallel/sp.py``; grid batches) the cells are this
+rank's floors: every mean over cells is the ranks' summed partial sums over the
+summed count, every sum per building the ranks' sum (one all-reduce through the
+differentiable ``AllReduceSum`` each), so each loss is the same on every rank.
+
 A batch of either layout gives its cells' types, mask and floor areas and
 sums per building (``per_graph_sum``): a ``GridBatch`` by dense axis sums
 (per slot, or per (slot, gid) building), a ``PackedBatch`` by segment sums
@@ -36,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import NUM_CLASSES, VOID, Configuration
+from ..parallel.sp import all_reduce_sum
 
 
 BCE_EPS = 1e-7  # the BCE losses' clip of the sigmoid scores
@@ -47,13 +53,19 @@ def _bce(scores: torch.Tensor, target_real: bool) -> torch.Tensor:
     return -torch.log(d if target_real else 1.0 - d)
 
 
-def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _summed(sp, *parts) -> tuple:
+    """``parts`` summed over the floor shard's ranks (as they are without one)."""
+    return parts if sp is None else all_reduce_sum(sp, *parts)
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor, sp=None) -> torch.Tensor:
     """Mean over entries where mask > 0, in float32; a trailing feature axis beyond mask is summed."""
     values = values.float()
     if values.dim() == mask.dim() + 1:
         values = values.sum(-1)
     values = torch.where(mask > 0, values, torch.zeros_like(values))
-    return values.sum() / mask.sum().clamp(min=1.0)
+    total, count = _summed(sp, values.sum(), mask.sum().float())
+    return total / count.clamp(min=1.0)
 
 
 def gradient_penalty(
@@ -64,11 +76,18 @@ def gradient_penalty(
     lambda_gp: float,
     eps: torch.Tensor | None = None,  # (..., 1) in [0, 1)
     generator: torch.Generator | None = None,
+    sp=None,
 ) -> torch.Tensor:
-    """WGAN-GP on the label simplex; ``eps`` given, or drawn from ``generator``."""
-    if eps is None:
-        eps = torch.rand(tuple(voxel_mask.shape) + (1,), generator=generator,
+    """WGAN-GP on the label simplex; ``eps`` given, or drawn from ``generator``.
+
+    With a floor shard each rank differentiates its own cells' scores: the critic's
+    collectives' backwards carry the other ranks' terms, so every rank gets the
+    gradient of the whole slots' sum at its cells."""
+    if eps is None:  # with a floor shard: the whole slots' draw at this rank's floors
+        shape = tuple(voxel_mask.shape) + (1,)
+        eps = torch.rand(shape if sp is None else sp.global_shape(shape), generator=generator,
                          device=voxel_mask.device, dtype=types_onehot.dtype)
+        eps = eps if sp is None else sp.local(eps)
     interpolated = eps * types_onehot + (1.0 - eps) * label_soft
     if not interpolated.requires_grad:
         interpolated.requires_grad_(True)
@@ -76,7 +95,7 @@ def gradient_penalty(
     total = (scores[..., 0] * voxel_mask).sum()
     (grads,) = torch.autograd.grad(total, interpolated, create_graph=True)
     norms = torch.sqrt((grads * grads).sum(-1) + 1e-12)
-    return masked_mean((norms - 1.0) ** 2, voxel_mask) * lambda_gp
+    return masked_mean((norms - 1.0) ** 2, voxel_mask, sp) * lambda_gp
 
 
 def discriminator_loss(
@@ -89,18 +108,20 @@ def discriminator_loss(
     eps: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
     d_apply_gp: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    sp=None,
 ) -> torch.Tensor:
     """Critic loss.  ``d_apply_gp`` (default ``d_apply``) is the critic inside the
     penalty, which is differentiated twice: the fused critic is first-order, so
     the train step passes the plain critic there.  Under the BCE losses there is
     no penalty: ``eps``, ``generator`` and ``d_apply_gp`` are not used."""
     if not cfg.USE_WGANGP:
-        return (masked_mean(_bce(d_apply(label_hard), False), voxel_mask)
-                + masked_mean(_bce(d_apply(types_onehot), True), voxel_mask))
-    loss = masked_mean(d_apply(label_hard), voxel_mask) - masked_mean(d_apply(types_onehot), voxel_mask)
+        return (masked_mean(_bce(d_apply(label_hard), False), voxel_mask, sp)
+                + masked_mean(_bce(d_apply(types_onehot), True), voxel_mask, sp))
+    loss = (masked_mean(d_apply(label_hard), voxel_mask, sp)
+            - masked_mean(d_apply(types_onehot), voxel_mask, sp))
     return loss + gradient_penalty(
         d_apply_gp or d_apply, types_onehot, label_soft, voxel_mask, cfg.LAMBDA_GP,
-        eps=eps, generator=generator,
+        eps=eps, generator=generator, sp=sp,
     )
 
 
@@ -110,6 +131,7 @@ def generator_loss(
     logits: torch.Tensor,
     label_hard: torch.Tensor,
     cfg: Configuration,
+    sp=None,
 ) -> tuple[torch.Tensor, dict]:
     """Generator loss and its terms (``g_loss_adv``, ``_label``, ``_ratio``, ``_ratio_void``, ``_far``)."""
     voxel_mask = batch.cell_mask
@@ -117,21 +139,24 @@ def generator_loss(
 
     d_fake = d_apply(label_hard)
     if cfg.USE_WGANGP:
-        g_loss_adv = -masked_mean(d_fake, voxel_mask) * cfg.LAMBDA_ADV
+        g_loss_adv = -masked_mean(d_fake, voxel_mask, sp) * cfg.LAMBDA_ADV
     else:
-        g_loss_adv = masked_mean(_bce(d_fake, True), voxel_mask) * cfg.LAMBDA_ADV
+        g_loss_adv = masked_mean(_bce(d_fake, True), voxel_mask, sp) * cfg.LAMBDA_ADV
 
     ce = -(types_onehot * torch.log_softmax(logits, dim=-1)).sum(-1)
-    g_loss_label = masked_mean(ce, voxel_mask) * cfg.LAMBDA_LABEL
+    g_loss_label = masked_mean(ce, voxel_mask, sp) * cfg.LAMBDA_LABEL
 
-    n_real = voxel_mask.sum().clamp(min=1.0)
     sum_dims = tuple(range(label_hard.dim() - 1))
-    ratio_gen = (label_hard * voxel_mask[..., None]).sum(sum_dims) / n_real
-    ratio_true = types_onehot.sum(sum_dims) / n_real
+    n_real, gen_sums, true_sums = _summed(
+        sp, voxel_mask.sum().to(label_hard.dtype), (label_hard * voxel_mask[..., None]).sum(sum_dims),
+        types_onehot.sum(sum_dims))
+    n_real = n_real.clamp(min=1.0)
+    ratio_gen = gen_sums / n_real
+    ratio_true = true_sums / n_real
     g_loss_ratio = ((ratio_gen[:-2] - ratio_true[:-2]) ** 2).mean() * cfg.LAMBDA_RATIO
     g_loss_ratio_void = ((ratio_gen[-2:] - ratio_true[-2:]) ** 2).mean() * cfg.LAMBDA_RATIO_VOID
 
-    far_err = (generated_far(batch, label_hard) - batch.far) ** 2
+    far_err = (generated_far(batch, label_hard, sp) - batch.far) ** 2
     g_mask = batch.graph_mask
     g_loss_far = (far_err * g_mask).sum() / g_mask.sum().clamp(min=1.0)
     g_loss_far = g_loss_far.detach() * cfg.LAMBDA_FAR
@@ -147,11 +172,12 @@ def generator_loss(
     return g_loss, aux
 
 
-def generated_far(batch, label_hard: torch.Tensor) -> torch.Tensor:
+def generated_far(batch, label_hard: torch.Tensor, sp=None) -> torch.Tensor:
     """Per-graph floor-area ratio of the generated labels: (B,) or (B, K) on the grid, (G,) packed.
 
     GFA = sum of (dim_y * dim_x) over generated non-void cells; FAR = GFA / site_area.
     """
     gen_type = label_hard.argmax(-1)
     nonvoid = (gen_type != VOID).to(label_hard.dtype) * batch.cell_mask
-    return batch.per_graph_sum(batch.cell_area * nonvoid) / batch.site_area.clamp(min=1e-6)
+    (gfa,) = _summed(sp, batch.per_graph_sum(batch.cell_area * nonvoid))
+    return gfa / batch.site_area.clamp(min=1e-6)

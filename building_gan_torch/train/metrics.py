@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import NUM_CLASSES
+from ..parallel.sp import all_reduce_sum
 from ..ops.segment import segment_sum
 
 F1_HIST_BINS = 32
@@ -99,17 +100,22 @@ def _min_over_real(per_graph_f1, graph_mask) -> torch.Tensor:
 
 
 def compute_metrics(y_true, y_pred, mask, graph_mask, gid=None,
-                    num_graphs_per_slot: int = 1, graph_id=None) -> dict:
+                    num_graphs_per_slot: int = 1, graph_id=None, sp=None) -> dict:
     """Batch macro scores and the min per-graph F1 over real graphs.
 
     Grid: ``(B, F, Y, X)`` labels; graphs are slots, or (slot, gid) with K > 1.
     Packed: 1-D labels with their ``graph_id`` (padding at G = ``graph_mask``'s length).
+    With a floor shard ``sp`` (``parallel/sp.py``) the labels are this rank's floors:
+    the per-building matrices are summed over the ranks before any score, so every
+    rank scores the whole buildings (a building split across floors has one F1).
     """
     if graph_id is not None:
         cm = confusion_matrix(y_true, y_pred, mask)
         cms = per_graph_confusion_matrices(y_true, y_pred, mask, graph_id, graph_mask.shape[0])
     else:
         cms = grid_confusion_matrices(y_true, y_pred, mask, gid, num_graphs_per_slot)
+        if sp is not None:
+            (cms,) = all_reduce_sum(sp, cms)
         cm = cms.reshape(-1, NUM_CLASSES, NUM_CLASSES).sum(0)
     batch_scores = scores_from_cm(cm)
     per_graph = scores_from_cm(cms)

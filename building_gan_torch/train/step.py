@@ -15,6 +15,13 @@ confusion matrices and F1 histograms summed, the scores recomputed from
 the summed matrix and ``f1_min`` taken over the ranks with w > 0
 (``reduce_metrics``).  Without a group the step makes no collective.
 
+With a floor shard ``sp`` (``parallel/sp.py::make_sp_train_step``) the batch
+is this rank's floors of every slot: both models run their plain modules with
+halo stencils and summed statistics, the noise is the whole slots' draw at
+this rank's floors, each rank backprops 1/n of the replicated loss, every
+parameter gradient is summed over the ranks before each Adam update, and the
+per-building confusion matrices are summed before any score.
+
 Each model's route is read from its configuration, per model
 (``models/fast_infer.py::fused_route``): a grid model whose conv is GATCONV
 runs its hourglass fused (``models/fast_train.py``: the CUDA kernels on a
@@ -60,6 +67,7 @@ from ..models.fast_infer import fused_route
 from ..ops.dropout import draw_keys
 from ..ops.gat_train import build_planes
 from ..ops.rng import normal_box_muller
+from ..parallel.sp import sum_gradients_
 from . import losses as L
 from . import metrics as M
 from .state import TrainState
@@ -75,9 +83,9 @@ def _check_device(batch, model_device) -> None:
                          "move the batch (batch.to(device)) first")
 
 
-def _metrics(batch, y_pred) -> dict:
+def _metrics(batch, y_pred, sp=None) -> dict:
     return M.compute_metrics(batch.cell_type, y_pred, batch.cell_mask, batch.graph_mask,
-                             **batch.metric_graphs)
+                             **batch.metric_graphs, sp=sp)
 
 
 def real_cells(batch) -> torch.Tensor:
@@ -141,7 +149,7 @@ def one_hot_types(batch) -> torch.Tensor:
     return F.one_hot(batch.cell_type.long(), NUM_CLASSES).float() * batch.cell_mask[..., None]
 
 
-def make_update_losses(cfg: Configuration, state: TrainState):
+def make_update_losses(cfg: Configuration, state: TrainState, sp=None, fused: bool = True):
     """The train step's two losses over ``state``: ``(critic_loss, generator_loss)``.
 
     ``critic_loss(batch, planes, generator[, types_onehot])`` draws one critic update's noise
@@ -150,28 +158,37 @@ def make_update_losses(cfg: Configuration, state: TrainState):
     critic's parameters.  ``generator_loss(batch, planes, generator)`` draws the
     generator update's and returns ``(g_loss, aux, label_hard)``, ``g_loss``
     differentiable in both modules' parameters.  ``planes`` is ``build_planes``
-    of the batch where a model is fused, else None (``needs_planes``).
+    of the batch where a model is fused, else None (``needs_planes``).  With a
+    floor shard ``sp`` both models run plain on this rank's floors, and each draw
+    shaped like the cells is the whole slots' draw at them.  ``fused=False`` runs
+    both models' plain modules whatever their route (a floor shard's route).
     """
     gen, disc = state.generator, state.discriminator
     n_gen_layers, n_disc_layers = gen.dropout_sites, disc.dropout_sites
-    gen_fused, disc_fused = fused_route(gen), fused_route(disc)
+    fused = fused and sp is None
+    gen_fused, disc_fused = fused_route(gen) and fused, fused_route(disc) and fused
+    shard = {} if sp is None else {"sp": sp}
     # the GP critic: the same critic, with f32 activations under GP_DTYPE "float32"
     # (building_gan_tpu/train/step.py clones it at f32), else at its own dtype
     gp_dtype = torch.float32 if cfg.GP_DTYPE == "float32" else None
 
+    def cells_draw(draw, mask, *tail):
+        shape = tuple(mask.shape) + tail
+        return draw(shape) if sp is None else sp.local(draw(sp.global_shape(shape)))
+
     def generator_forward(batch, mask, planes, generator):
-        z = normal_box_muller(tuple(mask.shape) + (cfg.Z_DIM,), generator)
+        z = cells_draw(lambda s: normal_box_muller(s, generator), mask, cfg.Z_DIM)
         keys = draw_keys(n_gen_layers, generator)
         if gen_fused:
             return FT.generator_apply_fused(gen, cfg, batch, z, generator=generator, keys=keys,
                                             planes=planes)
-        return gen(batch, z, generator=generator, deterministic=False, keys=keys)
+        return gen(batch, z, generator=generator, deterministic=False, keys=keys, **shard)
 
     def critic(batch, planes, keys):
         if disc_fused:
             return lambda label: FT.discriminator_apply_fused(disc, cfg, batch, label, keys,
                                                               planes=planes)
-        return lambda label: disc(batch, label, deterministic=False, keys=keys)
+        return lambda label: disc(batch, label, deterministic=False, keys=keys, **shard)
 
     def critic_loss(batch, planes, generator, types_onehot=None):
         mask = batch.cell_mask
@@ -180,18 +197,20 @@ def make_update_losses(cfg: Configuration, state: TrainState):
         with torch.no_grad():  # the generator's stop-gradient: nothing is saved
             _, label_hard, label_soft = generator_forward(batch, mask, planes, generator)
         keys = draw_keys(n_disc_layers, generator)
-        eps = torch.rand(tuple(mask.shape) + (1,), generator=generator,
-                         device=mask.device) if cfg.USE_WGANGP else None
+        eps = cells_draw(lambda s: torch.rand(s, generator=generator, device=mask.device), mask,
+                         1) if cfg.USE_WGANGP else None
         return L.discriminator_loss(
             critic(batch, planes, keys), types_onehot, label_hard, label_soft, mask, cfg, eps=eps,
             d_apply_gp=lambda label: disc(batch, label, deterministic=False, keys=keys,
-                                          dtype=gp_dtype),
+                                          dtype=gp_dtype, **shard),
+            sp=sp,
         )
 
     def generator_loss(batch, planes, generator):
         logits, label_hard, _ = generator_forward(batch, batch.cell_mask, planes, generator)
         keys_d = draw_keys(n_disc_layers, generator)
-        g_loss, aux = L.generator_loss(critic(batch, planes, keys_d), batch, logits, label_hard, cfg)
+        g_loss, aux = L.generator_loss(critic(batch, planes, keys_d), batch, logits, label_hard, cfg,
+                                       sp=sp)
         return g_loss, aux, label_hard
 
     return critic_loss, generator_loss
@@ -202,7 +221,8 @@ def needs_planes(state: TrainState) -> bool:
     return fused_route(state.generator) or fused_route(state.discriminator)
 
 
-def make_train_step(cfg: Configuration, state: TrainState, group=None) -> Callable:
+def make_train_step(cfg: Configuration, state: TrainState, group=None, sp=None,
+                    fused: bool = True) -> Callable:
     """Build ``train_step(batch, generator) -> metrics`` over ``state``.
 
     PyTorch idiom, unlike the pure JAX step: ``train_step`` updates
@@ -213,13 +233,24 @@ def make_train_step(cfg: Configuration, state: TrainState, group=None) -> Callab
     asked for the CPU); another raises.  So does a ``cfg.COMPUTE_DTYPE`` the port
     does not compute in (float16).  With ``group`` the gradients, losses and
     metrics are aggregated over its ranks (module docstring); every rank must
-    call the step together, on batches of one shape.
+    call the step together, on batches of one shape.  With a floor shard ``sp``
+    the batch is this rank's floors (``parallel/sp.py::make_sp_train_step``
+    shards it); every rank calls the step together, from identically seeded
+    generators.  ``fused=False`` runs both models' plain modules whatever their
+    route (the floor-sharded step's route, on one device).
     """
     cfg.require_ported_dtype("make_train_step")
+    if group is not None and sp is not None:
+        raise ValueError("the step takes a data-parallel group or a floor shard, not both")
     gen, disc = state.generator, state.discriminator
     model_device = next(gen.parameters()).device
-    critic_loss, generator_loss = make_update_losses(cfg, state)
-    with_planes = needs_planes(state)
+    fused = fused and sp is None
+    critic_loss, generator_loss = make_update_losses(cfg, state, sp, fused)
+    with_planes = needs_planes(state) and fused
+
+    def backward(loss, **kw):
+        # on a floor shard each rank seeds 1/n: the n ranks' seeds add up to the loss once
+        (loss if sp is None else loss / sp.n).backward(**kw)
 
     def train_step(batch, generator: torch.Generator) -> dict:
         # the backward passes on this thread: nodes of the penalty's double backward are
@@ -240,24 +271,28 @@ def make_train_step(cfg: Configuration, state: TrainState, group=None) -> Callab
         for _ in range(cfg.N_CRITIC):
             state.opt_d.zero_grad(set_to_none=True)
             d_loss = critic_loss(batch, planes, generator, types_onehot)
-            d_loss.backward()
+            backward(d_loss)
             d_loss = d_loss.detach()
             if group is not None:
                 (d_loss,) = weighted_mean_(disc.parameters(), [d_loss], w, group)
+            if sp is not None:
+                sum_gradients_(disc.parameters(), sp)
             state.opt_d.step()
             d_loss_sum = d_loss_sum + d_loss
 
         state.opt_g.zero_grad(set_to_none=True)
         g_loss, aux, label_hard = generator_loss(batch, planes, generator)
-        g_loss.backward(inputs=list(gen.parameters()))
+        backward(g_loss, inputs=list(gen.parameters()))
         g_loss, aux = g_loss.detach(), {k: v.detach() for k, v in aux.items()}
         if group is not None:
             g_loss, *terms = weighted_mean_(gen.parameters(), [g_loss, *aux.values()], w, group)
             aux = dict(zip(aux, terms))
+        if sp is not None:
+            sum_gradients_(gen.parameters(), sp)
         state.opt_g.step()
         state.step += 1
 
-        m = _metrics(batch, label_hard.detach().argmax(-1))
+        m = _metrics(batch, label_hard.detach().argmax(-1), sp)
         if group is not None:
             m, _ = reduce_metrics(m, w, group)
         return {

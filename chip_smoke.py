@@ -5,6 +5,8 @@
     python3 chip_smoke.py --steps N   # only N train steps, timed (to compare trees)
     python3 chip_smoke.py --dp   # only phase 13 (data parallelism; NCCL across
         # the cards too on a host of 2 to 4)
+    python3 chip_smoke.py --sp   # only phase 14 (floor sharding; NCCL on 2 and 4
+        # cards too on a host of 4)
     python3 chip_smoke.py --time-hourglass [DIR]   # only the serving kernel, timed;
         # DIR: a checkout whose building_gan_torch is timed instead (to compare trees)
 
@@ -139,9 +141,22 @@ Phases, one short output line or a few each:
      (spawned processes): the same checks, the kernels on the last card with
      card 0 current, times, and the CLI's train / test --mesh-data N; on one
      card a line saying why that part did not run;
-  14. the run's seconds and a {"kernels": [...]} line: each kernel at f32 and
+  14. floor sharding (parallel/sp.py) at the config of record's widths, the
+     train batch's 256 buildings packed K=6 at (12, 12, 12) (100 slots), SGD:
+     two gloo ranks sharing the card as threads (CUDA tensors): the four halo
+     stencils against the unsharded ones (forward bit for bit, first- and
+     second-order input gradients within 1e-6 of scale), the generator forward
+     at f32 and bf16 against one card's by the f64 rules, the step at f32 (2
+     steps), bf16 and f64, with N_CRITIC 5 and 0, against the one-card plain
+     step (make_train_step(..., fused=False)) by the f64 rule (sp_hold), the
+     f64 steps within SP_F64_REL / SP_F64_PURE, the replicas equal bit for
+     bit, 0 / 0 / 0 / 180 launches a rank a step, step ms, the collectives' ms
+     and calls, peak memory; on a host of 2-4 cards (``--sp``) the same with
+     NCCL on 2 and on 4 cards, one rank process a card (6 and 3 floors each);
+     on one card a line saying why that part did not run;
+  15. the run's seconds and a {"kernels": [...]} line: each kernel at f32 and
      at bf16 storage ("dtype"), launches from that dtype's main path;
-  15. the server stopped, every thread joined, and the result line last.
+  16. the server stopped, every thread joined, and the result line last.
 
 Every kernel is held against its plain version run in float64, the gradients
 too, by two rules: its max abs error within 4x the plain float32 version's own,
@@ -1098,11 +1113,11 @@ def int64_elementwise_ms(rows) -> float:
     return sum(v for k, v in rows if "<long" in k and "elementwise" in k)
 
 
-def _int64_keep(shape, key, levels, width, device):
+def _int64_keep(shape, key, levels, width, device, rows=None):
     """The GP pass's mask as before the repair: keep_mask's int64 Philox, on the card."""
     from building_gan_torch.ops import dropout as drop
 
-    return drop.keep_mask(shape, key, levels, width, device)
+    return drop.keep_mask(shape, key, levels, width, device, rows)
 
 
 def repair_check(state, cfg, batch, dev, card):
@@ -1489,18 +1504,20 @@ def layer_launches():
             gt.bytes_launches.value)
 
 
-def step_launches(cfg, state):
+def step_launches(cfg, state, fused=True):
     """(hourglass, training forward, training backward, dropout-byte) launches one train step of
     ``state`` makes, from the step's structure: N_CRITIC critic updates, each a stop-grad
     generator forward, the critic on real and fake labels and (WGAN-GP only) the plain
     critic inside the penalty, then the G update's generator and critic.  A fused model
     launches its layers' kernels (backward where a gradient flows: the critic updates' and
     the G update's critic, the G update's generator); a plain one draws each dropout site's
-    bytes with the Philox kernel."""
+    bytes with the Philox kernel.  ``fused=False``: the step's plain route (a floor-sharded
+    rank's, or ``make_train_step(..., fused=False)``), 0 training-layer launches."""
     from building_gan_torch.models.fast_infer import fused_route
 
     n, gp = cfg.N_CRITIC, int(cfg.USE_WGANGP)
-    gf, df = int(fused_route(state.generator)), int(fused_route(state.discriminator))
+    gf = int(fused and fused_route(state.generator))
+    df = int(fused and fused_route(state.discriminator))
     Lg, Ld = state.generator.dropout_sites, state.discriminator.dropout_sites
     return (0, (n + 1) * Lg * gf + (2 * n + 1) * Ld * df, Lg * gf + (2 * n + 1) * Ld * df,
             (n + 1) * Lg * (1 - gf) + (2 * n + 1) * Ld * (1 - df) + n * Ld * gp)
@@ -2981,10 +2998,9 @@ def dp_phase(cfg_t, grid_flags, root, dev, card):
     say(f"phase: dp across {min(n, DP_MAX_CARDS)} cards {time.perf_counter() - t_phase:.1f} s")
 
 
-def dp_only() -> int:
-    """``python3 chip_smoke.py --dp``: only phase 13 (builds the kernels, packs the train
-    batch and writes its own processed buildings for the Trainer and the CLI), then the
-    result line."""
+def phase_only(run) -> int:
+    """One phase alone (``--dp``, ``--sp``): builds the kernels, runs ``run(root, dev, card)``
+    in a temporary directory, then prints the run's seconds and the result line."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -2998,10 +3014,9 @@ def dp_only() -> int:
     say(card)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
     _build.build_all(("hourglass", "gat_train"))
-    cfg_t = train_cfg()
-    root = tempfile.mkdtemp(prefix="bgt_dp_")
+    root = tempfile.mkdtemp(prefix="bgt_phase_")
     try:
-        dp_phase(cfg_t, dp_data(root), root, dev, card)
+        run(root, dev, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     say(f"total: {time.perf_counter() - t_start:.1f} s")
@@ -3010,6 +3025,490 @@ def dp_only() -> int:
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def dp_only() -> int:
+    """``python3 chip_smoke.py --dp``: only phase 13 (packs the train batch and writes its own
+    processed buildings for the Trainer and the CLI)."""
+    return phase_only(lambda root, dev, card: dp_phase(train_cfg(), dp_data(root), root, dev, card))
+
+
+# Phase 14: floor sharding (parallel/sp.py) at the config of record's widths on (12, 12, 12), the
+# train batch's buildings packed K = 6: two gloo ranks sharing the card (threads of this process),
+# and on a host of 2 to 4 cards NCCL with one rank a card (spawned processes).  Every step of the
+# phase runs SGD (tests/test_sp.py's reason: Adam turns rounding-level sign flips of near-zero
+# gradients into +-lr steps, which would hide the comparison).
+SP_GRID, SP_MAX_CARDS, SP_STENCIL_SLOTS, SP_LR = (12, 12, 12), 4, 16, 1e-2
+SP_KEYS = ("g_loss", "d_loss", "g_loss_adv", "g_loss_ratio", "g_loss_ratio_void", "g_loss_far", "f1",
+           "precision", "recall", "accuracy")
+SP_METRIC_RTOL = 5e-3  # tests/test_sp.py's
+SP_UPDATE_REL = 3e-3  # the critic's update, or the generator's with no critic update: tests/test_sp.py's
+# The f64 sharded step against the f64 one-card step: (critic, generator) with N_CRITIC critic
+# updates, and the generator with none.  The f64 runs keep the models' f32 casts (logits and
+# labels, the penalty's input gradient, the losses), where a reassociated f64 sum flips an f32
+# ulp now and then; the critic updates amplify it (the first card run: rel 5.4e-7 and 5.3e-4 on
+# two ranks).  A dropped halo plane, a double-counted shard or a wrong reduction moves them at
+# 1e-2 to 1.
+SP_F64_REL, SP_F64_PURE = (1e-5, 1e-2), 1e-5
+SP_DTYPES = {"float32": torch.float32, "bfloat16": BF16, "float64": torch.float64}
+
+
+@functools.lru_cache(maxsize=None)
+def sp_batch():
+    """(cfg, batch on the CPU): the train batch's TRAIN_BATCH_BUILDINGS buildings planned and
+    packed K = 6 at (12, 12, 12) (F = 12 divides over 2 and 4 ranks; the config of record's
+    11 floors do not)."""
+    from building_gan_torch.data import pack_grid_multi_from_slots, plan_packing_slots
+
+    cfg = train_cfg().replace(GRID_SHAPE=SP_GRID)
+    samples = list(train_samples()[:TRAIN_BATCH_BUILDINGS])
+    slots = plan_packing_slots(samples, cfg)
+    return cfg, pack_grid_multi_from_slots(samples, slots, cfg, batch_slots=len(slots))
+
+
+def sp_cfg(cfg, dtype):
+    """The configuration of a dtype tag: f32 and f64 runs compute at f32 in the configuration
+    (an f64 run's modules are made f64 by ``sp_state``)."""
+    return cfg.replace(COMPUTE_DTYPE="bfloat16" if dtype == "bfloat16" else "float32")
+
+
+def sp_on(batch, dev, dtype):
+    """``batch`` on ``dev``, its float fields in f64 for an f64 run."""
+    import dataclasses
+
+    batch = batch.to(dev)
+    if dtype != "float64":
+        return batch
+    return dataclasses.replace(batch, **{k: v.double() for k, v in vars(batch).items()
+                                         if torch.is_tensor(v) and v.is_floating_point()})
+
+
+def sp_state(cfg, dev, dtype):
+    """Fresh models from torch.manual_seed(cfg.SEED) on ``dev`` (computing in f64 for an f64 run),
+    each with SGD(SP_LR)."""
+    from building_gan_torch.models.grid_models import GridVoxelGNNDiscriminator, GridVoxelGNNGenerator
+    from building_gan_torch.train.state import TrainState
+
+    with DP_INIT_LOCK:
+        torch.manual_seed(cfg.SEED)
+        gen, disc = GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg)
+    for m in (gen, disc):
+        m.to(dev)
+        if dtype == "float64":
+            m.double()
+            m.compute_dtype = torch.float64
+    return TrainState(gen, disc, torch.optim.SGD(gen.parameters(), lr=SP_LR),
+                      torch.optim.SGD(disc.parameters(), lr=SP_LR))
+
+
+def sp_params(state):
+    """(generator, critic) parameters, copied to the host."""
+    return tuple([p.detach().cpu().clone() for p in m.parameters()]
+                 for m in (state.generator, state.discriminator))
+
+
+def sp_distance(p0, pa, pb):
+    """(relative distance, cosine) of the updates pa - p0 and pb - p0, each one vector, in f64."""
+    ua = torch.cat([(a.double() - o.double()).reshape(-1) for o, a in zip(p0, pa)])
+    ub = torch.cat([(b.double() - o.double()).reshape(-1) for o, b in zip(p0, pb)])
+    rel = ((ua - ub).norm() / ua.norm().clamp(min=1e-300)).item()
+    cos = (ua @ ub / (ua.norm() * ub.norm()).clamp(min=1e-300)).item()
+    return rel, cos
+
+
+def sp_launches(cfg, state, dev):
+    """(hourglass, training forward, backward, dropout-byte) launches of one floor-sharded step a
+    rank: the plain route's (``step_launches``), none on the CPU, where the dropout masks are
+    drawn in int64 tensor arithmetic."""
+    return tuple(v * (dev.type == "cuda") for v in step_launches(cfg, state, fused=False))
+
+
+def sp_peak(dev, reset=False):
+    """The card's peak allocated GiB since the last reset (0 on the CPU)."""
+    if dev.type != "cuda":
+        return 0.0
+    if reset:
+        torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def sp_one_card(cfg, batch, dev, dtype):
+    """The one-card plain step (``make_train_step(..., fused=False)``, the floor-sharded step's
+    route) from the phase's weights and draws: step 1's metrics and parameters, then step 2
+    timed, with the card's peak memory."""
+    from building_gan_torch.train.step import make_train_step
+
+    b = sp_on(batch, dev, dtype)
+    state = sp_state(cfg, dev, dtype)
+    p0 = sp_params(state)
+    step = make_train_step(cfg, state, fused=False)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    m = step(b, gen)
+    out = {"p0": p0, "p1": sp_params(state), "metrics": {k: m[k].item() for k in SP_KEYS},
+           "cm": m["confusion_matrix"].cpu()}
+    sp_peak(dev, reset=True)
+    dev_sync(dev)
+    t = time.perf_counter()
+    step(b, gen)
+    dev_sync(dev)
+    out["ms"], out["peak"] = (time.perf_counter() - t) * 1e3, sp_peak(dev)
+    return out
+
+
+def sp_rank_run(cfg, batch, dev, group, dtype, steps, timed=True):
+    """``steps`` floor-sharded steps of fresh models on this rank of ``group`` (every rank drawing
+    from a generator seeded 0), then (``timed``) one more with the collectives timed
+    (``FloorShard.timed``);
+    -> step 1's metrics and parameters, the last parameters, each step's launches and ms (host
+    clock, synchronised), the timed step's collectives, the card's peak memory."""
+    from building_gan_torch.parallel import sp
+
+    b = sp_on(batch, dev, dtype)
+    state = sp_state(cfg, dev, dtype)
+    shard = sp.make_floor_shard(group, SP_GRID[0])
+    step = sp.make_sp_train_step(cfg, state, shard)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"launches": [], "ms": [], "want": sp_launches(cfg, state, dev)}
+    sp_peak(dev, reset=True)
+    for i in range(steps):
+        before = launches_here()
+        dev_sync(dev)
+        t = time.perf_counter()
+        m = step(b, gen)
+        dev_sync(dev)
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        out["launches"].append(tuple(a - z for z, a in zip(before, launches_here())))
+        if not all(torch.isfinite(v).all().item() for v in m.values()):
+            raise AssertionError(f"a floor-sharded step's metrics are not finite: {m}")
+        if i == 0:
+            out["metrics"] = {k: m[k].item() for k in SP_KEYS}
+            out["cm"] = m["confusion_matrix"].cpu()
+            out["p1"] = sp_params(state)
+    out["final"] = sp_params(state)
+    out["peak"] = sp_peak(dev)
+    if timed:
+        shard.timed = True
+        shard.reset_stats()
+        step(b, gen)
+        out["exchange"] = {k: dict(v) for k, v in shard.stats.items()}
+    out["cells"] = int(batch.mask[:, shard.f0:shard.f0 + shard.fs].sum().item())
+    return out
+
+
+def sp_forward(cfg, batch, dev, group, dtype):
+    """This rank's floors of the deterministic generator forward (``sp_generator_apply``), joined
+    over the ranks: logits on the host (z from a generator seeded 5, zero Gumbel noise)."""
+    from building_gan_torch.parallel import sp
+
+    b = sp_on(batch, dev, dtype)
+    state = sp_state(cfg, dev, dtype)
+    z, noise = sp_noise(cfg, batch, dev)
+    shard = sp.make_floor_shard(group, SP_GRID[0])
+    logits, _, _ = sp.sp_generator_apply(state.generator, shard)(b, z, gumbel_noise=noise)
+    return sp.gather_floors(logits, shard).cpu()
+
+
+def sp_noise(cfg, batch, dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    z = torch.randn(tuple(batch.mask.shape) + (cfg.Z_DIM,), generator=gen, device=dev)
+    return z, torch.zeros(tuple(batch.mask.shape) + (7,), device=dev)
+
+
+def sp_forward_one_card(cfg, batch, dev, dtype):
+    b = sp_on(batch, dev, dtype)
+    state = sp_state(cfg, dev, dtype)
+    z, noise = sp_noise(cfg, batch, dev)
+    with torch.no_grad():
+        logits, _, _ = state.generator(b, z, gumbel_noise=noise)
+    return logits.cpu()
+
+
+def sp_hold(label, r, o, ref, ref64, pure):
+    """One rank's step 1 (``o``) against the one-card plain step at its dtype (``ref``) by the
+    f64 rule: its distance from the one-card f64 step (``ref64``) at most ROUNDING_FACTOR times
+    the one-card step's own, plus tests/test_sp.py's limit: each metric (rtol / atol 5e-3) and
+    the critic's update (rel 3e-3), or with no critic update (``pure``) the generator's.  The
+    generator's update after critic updates is printed, not held: its gradient is the critic's
+    input gradient, which amplifies the critic's rounding ~500 times (tests/test_sp.py), so
+    only the f64 runs hold it.  -> the metrics' largest difference from ``ref``."""
+    bad = []
+    for k in SP_KEYS:
+        err, err_ref = abs(o["metrics"][k] - ref64["metrics"][k]), abs(ref["metrics"][k] - ref64["metrics"][k])
+        if err > ROUNDING_FACTOR * err_ref + SP_METRIC_RTOL * (1 + abs(ref64["metrics"][k])):
+            bad.append(k)
+    i = 0 if pure else 1
+    err = sp_distance(ref64["p0"][i], ref64["p1"][i], o["p1"][i])[0]
+    err_ref = sp_distance(ref64["p0"][i], ref64["p1"][i], ref["p1"][i])[0]
+    limit = ROUNDING_FACTOR * err_ref + SP_UPDATE_REL
+    if err > limit:
+        bad.append("generator" if pure else "critic")
+    rel, cos = sp_distance(ref["p0"][i], ref["p1"][i], o["p1"][i])
+    report = (f"{'generator (no critic update)' if pure else 'critic'} update against one card rel "
+              f"{rel:.3e} cos {cos:.7f}; against the f64 one-card step rel {err:.3e} (one card's "
+              f"{err_ref:.3e}, limit {limit:.3e})")
+    if not pure:
+        g = [sp_distance(ref64["p0"][0], ref64["p1"][0], x["p1"][0]) for x in (o, ref)]
+        rel_g, cos_g = sp_distance(ref["p0"][0], ref["p1"][0], o["p1"][0])
+        report += (f"; generator update (not held) against one card rel {rel_g:.3e} cos {cos_g:.5f}, "
+                   f"against f64 rel {g[0][0]:.3e} (one card's {g[1][0]:.3e})")
+    cm_cells = int((o["cm"] != ref["cm"]).sum().item())
+    launches_ok = all(tuple(x) == tuple(o["want"]) for x in o["launches"])
+    if r == 0 or bad or not launches_ok:
+        say(f"{label} rank {r}: {report}; metrics beyond the rule {bad}; confusion-matrix cells "
+            f"differing {cm_cells}; launches a step {o['launches']} (expect {tuple(o['want'])})")
+    if bad or not launches_ok:
+        raise AssertionError(f"{label} rank {r}: the floor-sharded step disagrees with one card "
+                             f"({bad}) or launched {o['launches']}")
+    return max(abs(o["metrics"][k] - ref["metrics"][k]) for k in SP_KEYS)
+
+
+def sp_check_step(label, runs, refs, dtype, pure_runs, f64_runs):
+    """Every rank's step 1 against the one-card plain step (``sp_hold``), with critic updates
+    and without (``pure_runs``, N_CRITIC = 0); the f64 runs against the f64 one-card step within
+    ``SP_F64_REL`` and ``SP_F64_PURE``.  The replicas bit-equal after the last step."""
+    worst = max(sp_hold(label, r, o, refs[dtype], refs["float64"], False) for r, o in enumerate(runs))
+    worst_pure = max(sp_hold(label + " N_CRITIC 0", r, o, refs[dtype, "pure"], refs["float64", "pure"], True)
+                     for r, o in enumerate(pure_runs))
+    same = all(torch.equal(a, b) for o in runs[1:] for pa, pb in zip(o["final"], runs[0]["final"])
+               for a, b in zip(pa, pb))
+    if not same:
+        raise AssertionError(f"{label}: the replicas drifted apart")
+    for tag, ref64, f64s, limits in (("", refs["float64"], f64_runs[0], SP_F64_REL),
+                                     (" N_CRITIC 0", refs["float64", "pure"], f64_runs[1],
+                                      (0.0, SP_F64_PURE))):
+        for r, o in enumerate(f64s):
+            rel_d = sp_distance(ref64["p0"][1], ref64["p1"][1], o["p1"][1])[0] if not tag else 0.0
+            rel_g = sp_distance(ref64["p0"][0], ref64["p1"][0], o["p1"][0])[0]
+            bad = rel_d > limits[0] or rel_g >= limits[1]
+            if r == 0 or bad:
+                say(f"{label} rank {r}{tag}, f64 against the f64 one-card step: critic rel "
+                    f"{rel_d:.3e}, generator rel {rel_g:.3e} (limits {limits})")
+            if bad:
+                raise AssertionError(f"{label} rank {r}{tag}: the f64 floor-sharded step disagrees")
+    say(f"{label}: every rank within its limits (largest metric difference from one card "
+        f"{worst:.3e}, {worst_pure:.3e} at N_CRITIC 0); replicas equal bit for bit after "
+        f"{len(runs[0]['ms'])} steps")
+
+
+def sp_times(label, runs, ref, card):
+    """Step ms (the slowest rank's last untimed step), real voxel nodes/s, the timed step's
+    halo-exchange and all-reduce ms (the slowest rank's), peak memory and launches a rank."""
+    step_ms = max(o["ms"][-1] for o in runs)
+    cells = sum(o["cells"] for o in runs)
+    ex = [o["exchange"] for o in runs]
+    part = {k: (max(e.get(k, {}).get("ms", 0.0) for e in ex), ex[0].get(k, {}).get("calls", 0),
+                ex[0].get(k, {}).get("bytes", 0) / 2**20) for k in ("halo", "sum", "grads")}
+    say(f"{label}: step {step_ms:.1f} ms (the slowest rank; one card's plain step {ref['ms']:.1f} ms, "
+        f"peak {ref['peak']:.3f} GiB), {cells / (step_ms / 1e3):.1f} real voxel nodes/s ({cells} "
+        f"real cells); a timed step's collectives (each between two synchronisations): halo "
+        f"exchange {part['halo'][0]:.1f} ms ({part['halo'][1]} calls, {part['halo'][2]:.1f} MiB a "
+        f"rank), statistic and loss all-reduce {part['sum'][0]:.1f} ms ({part['sum'][1]} calls, "
+        f"{part['sum'][2]:.2f} MiB), gradient all-reduce {part['grads'][0]:.1f} ms "
+        f"({part['grads'][1]} calls, {part['grads'][2]:.2f} MiB); peak device memory a rank "
+        f"{max(o['peak'] for o in runs):.3f} GiB; launches a rank a step {tuple(runs[0]['launches'][-1])} "
+        f"on {card}")
+    return step_ms
+
+
+def sp_stencils(batch, dev, card):
+    """The four halo stencils at one layer's shapes (SP_STENCIL_SLOTS slots of the batch, its
+    mask and gid, random features of 32 channels) on two gloo ranks on CUDA tensors: the
+    forward equal to the unsharded stencil bit for bit, the first- and second-order input
+    gradients within 1e-6 of their scale."""
+    from building_gan_torch.ops import stencil
+    from building_gan_torch.parallel import mesh, sp
+
+    B, R, C = min(SP_STENCIL_SLOTS, batch.mask.shape[0]), math.prod(SP_GRID), 32
+    gen = torch.Generator(device=dev).manual_seed(9)
+    mask = batch.mask[:B].reshape(B, R).to(dev)
+    gid = batch.gid[:B].reshape(B, R).to(dev)
+    h = torch.randn(B, R, C, generator=gen, device=dev) * mask[..., None]
+    ins = {"h": h, "h2": torch.randn(B, R, C, generator=gen, device=dev),
+           "a_src": torch.randn(B, R, generator=gen, device=dev),
+           "a_dst": torch.randn(B, R, generator=gen, device=dev)}
+    att, gy = torch.randn(C, generator=gen, device=dev), torch.randn(B, R, C, generator=gen, device=dev)
+    uses = {"gat": ("h", "a_src", "a_dst"), "gcn": ("h",), "sum": ("h",), "gatv2": ("h", "h2")}
+    plane = SP_GRID[1] * SP_GRID[2]
+
+    def call(op, xs, m, grid, g, shard=None):
+        kw = {} if shard is None else {"sp": shard}
+        fn = getattr(stencil, f"stencil_{op}_flat") if shard is None else getattr(sp, f"stencil_{op}_sp")
+        if op == "gatv2":
+            return fn(xs[0], xs[1], att, m, grid, gid=g, **kw)
+        return fn(*xs, m, grid, gid=g, **kw)
+
+    def orders(fn, xs, g_y):
+        xs = [x.clone().requires_grad_(True) for x in xs]
+        y = fn(xs)
+        g1 = torch.autograd.grad((y * y * g_y).sum(), xs, create_graph=True)
+        g2 = torch.autograd.grad(sum((g * g).sum() for g in g1), xs)
+        return [y.detach()] + [g.detach() for g in g1] + list(g2)
+
+    worst = 0.0
+    for op, names in uses.items():
+        xs = [ins[k] for k in names]
+        with torch.autograd.set_multithreading_enabled(False):
+            want = orders(lambda v: call(op, v, mask, SP_GRID, gid), xs, gy)
+
+        def rank(r, group):
+            shard = sp.make_floor_shard(group, SP_GRID[0])
+            loc = [shard.local(x, 1, plane) for x in xs]
+            with torch.autograd.set_multithreading_enabled(False):
+                got = orders(lambda v: call(op, v, shard.local(mask, 1, plane), (shard.fs,) + SP_GRID[1:],
+                                            shard.local(gid, 1, plane), shard), loc,
+                             shard.local(gy, 1, plane))
+            return [sp.gather_floors(v, shard) for v in got]
+
+        for got in mesh.thread_ranks(2, rank):
+            if not torch.equal(got[0], want[0]):
+                raise AssertionError(f"sp stencil {op}: the sharded forward is not the unsharded one")
+            for a, b in zip(got[1:], want[1:]):
+                err = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                worst = max(worst, err)
+                if err > 1e-6:
+                    raise AssertionError(f"sp stencil {op}: gradients {err:.3e} of their scale apart")
+    say(f"sp stencils (gat, gcn, sum, gatv2 with gid; {B} slots of {SP_GRID}, {C} channels; 2 gloo "
+        f"ranks on CUDA tensors): forward equal bit for bit, first- and second-order input "
+        f"gradients within {worst:.2e} of their scale (limit 1e-6) on {card}")
+
+
+def sp_forward_check(cfg, batch, dev, card, dtype, n, group_fn):
+    """The floor-sharded generator forward on n ranks against the one-card plain forward by the
+    f64 rules (``f64_rule``: the one card's forward at the dtype as the plain version)."""
+    c = sp_cfg(cfg, dtype)
+    want = sp_forward_one_card(c, batch, dev, dtype)
+    want64 = sp_forward_one_card(c, batch, dev, "float64")
+    got = group_fn(lambda r, g: sp_forward(c, batch, dev, g, dtype))[0]
+    ok, report, _ = f64_rule(got, want, want64)
+    say(f"sp generator forward ({dtype}, {n} ranks) against one card {report}")
+    if not ok:
+        raise AssertionError(f"sp generator forward ({dtype}, {n} ranks) disagrees with one card")
+
+
+def sp_shared_card(cfg, batch, dev, card):
+    """Two gloo ranks on one card (threads of this process, CUDA tensors): the stencils; the
+    generator forward at f32 and bf16; the step at f32 (2 steps), bf16 and f64 against the
+    one-card plain step; times.  -> the one-card references by dtype."""
+    from building_gan_torch.parallel import mesh
+
+    t = time.perf_counter()
+    sp_stencils(batch, dev, card)
+    two = lambda fn: mesh.thread_ranks(2, fn)  # noqa: E731
+    for dtype in ("float32", "bfloat16"):
+        sp_forward_check(cfg, batch, dev, card, dtype, 2, two)
+    say(f"sp: stencils and forward {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    refs = sp_references(cfg, batch, dev)
+    say(f"sp: one-card references (f32, bf16, f64; N_CRITIC {cfg.N_CRITIC} and 0) "
+        f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    runs64 = [two(lambda r, g: sp_rank_run(c, batch, dev, g, "float64", 1, timed=False))
+              for c in (sp_cfg(cfg, "float64"), sp_cfg(cfg, "float64").replace(N_CRITIC=0))]
+    say(f"sp: f64 sharded steps {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        c = sp_cfg(cfg, dtype)  # the replicas held after 2 f32 steps, 1 bf16 step for time
+        runs = two(lambda r, g: sp_rank_run(c, batch, dev, g, dtype, 2 if dtype == "float32" else 1))
+        pure = two(lambda r, g: sp_rank_run(c.replace(N_CRITIC=0), batch, dev, g, dtype, 1,
+                                            timed=False))
+        label = f"sp ({dtype}, 2 gloo ranks on one card)"
+        sp_check_step(label, runs, refs, dtype, pure, runs64 if dtype == "float32" else ([], []))
+        sp_times(label + " (correctness, not scaling: the ranks share the card)", runs,
+                 refs[dtype], card)
+        say(f"sp: {dtype} sharded steps {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        del runs, pure
+    return refs
+
+
+def sp_references(cfg, batch, dev):
+    """The one-card plain steps by dtype (f32, bf16, f64), with critic updates and without
+    (``(dtype, "pure")``, N_CRITIC = 0)."""
+    refs = {}
+    for d in SP_DTYPES:
+        refs[d] = sp_one_card(sp_cfg(cfg, d), batch, dev, d)
+        refs[d, "pure"] = sp_one_card(sp_cfg(cfg, d).replace(N_CRITIC=0), batch, dev, d)
+    return refs
+
+
+def sp_card_rank(rank, n, store, cfg, batch, out_dir, device_type):
+    """One rank a card (a spawned process), NCCL: the forward, then the step at f32, bf16 and
+    f64, saved to out_dir/rank{rank}.pt."""
+    import os
+
+    from building_gan_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = mesh.init_data_group(rank, n, store, device_type)
+    dev = mesh.rank_device(rank, device_type)
+    try:
+        res = {f"forward_{d}": sp_forward(sp_cfg(cfg, d), batch, dev, group, d)
+               for d in ("float32", "bfloat16")}
+        for dtype in SP_DTYPES:
+            c, f64 = sp_cfg(cfg, dtype), dtype == "float64"
+            res[dtype] = sp_rank_run(c, batch, dev, group, dtype, 1 if f64 else 2, timed=not f64)
+            res[dtype, "pure"] = sp_rank_run(c.replace(N_CRITIC=0), batch, dev, group, dtype, 1,
+                                             timed=False)
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        mesh.destroy_data_group()
+
+
+def sp_cards(cfg, batch, refs, root, dev, card):
+    """NCCL with one rank a card on 2 and on 4 cards (6 and 3 floors a rank): the forward and the
+    step against the one-card references, times."""
+    import os
+
+    have = min(torch.cuda.device_count(), SP_MAX_CARDS)
+    fwd = {d: (sp_forward_one_card(sp_cfg(cfg, d), batch, dev, d),
+               sp_forward_one_card(sp_cfg(cfg, d), batch, dev, "float64")) for d in ("float32", "bfloat16")}
+    for n in (k for k in (2, 4) if k <= have):
+        out_dir = tempfile.mkdtemp(prefix=f"bgt_sp{n}_", dir=root)
+        t = time.perf_counter()
+        torch.multiprocessing.spawn(sp_card_rank, nprocs=n, join=True, args=(
+            n, os.path.join(out_dir, "store"), cfg, batch, out_dir, dev.type))
+        s_spawn = time.perf_counter() - t
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(n)]
+        label = f"sp (NCCL, {n} ranks, one a card, {SP_GRID[0] // n} floors each)"
+        for d in ("float32", "bfloat16"):
+            ok, report, _ = f64_rule(ranks[0][f"forward_{d}"], *fwd[d])
+            say(f"{label} generator forward ({d}) against one card {report}")
+            if not ok or not all(torch.equal(r[f"forward_{d}"], ranks[0][f"forward_{d}"]) for r in ranks):
+                raise AssertionError(f"{label}: the generator forward ({d}) disagrees")
+        f64 = ([r["float64"] for r in ranks], [r["float64", "pure"] for r in ranks])
+        for dtype in ("float32", "bfloat16"):
+            runs = [r[dtype] for r in ranks]
+            sp_check_step(f"{label} ({dtype})", runs, refs, dtype, [r[dtype, "pure"] for r in ranks],
+                          f64 if dtype == "float32" else ([], []))
+            sp_times(f"{label} ({dtype})", runs, refs[dtype], card)
+        say(f"{label}: {n} rank processes {s_spawn:.1f} s (start, the forward, f32 / bf16 / f64 "
+            "steps with and without critic updates)")
+
+
+def sp_phase(root, dev, card):
+    """Phase 14 (``--sp`` runs it alone): floor sharding at the config of record's widths."""
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    cfg, batch = sp_batch()
+    say(f"sp: the train batch's {TRAIN_BATCH_BUILDINGS} buildings in {batch.mask.shape[0]} slots of "
+        f"{SP_GRID} at K={batch.graphs_per_slot} ({int(batch.mask.sum())} real cells; {time.perf_counter() - t:.1f} s "
+        f"on the host)")
+    refs = sp_shared_card(cfg, batch, dev, card)
+    say(f"phase: sp on one card {time.perf_counter() - t_phase:.1f} s")
+    n = torch.cuda.device_count()
+    if n < 2:
+        say(f"sp: NCCL across cards did not run: this host has {n} CUDA device (needs 2 to "
+            f"{SP_MAX_CARDS}; `python3 chip_smoke.py --sp` on such a host runs it)")
+        return
+    t_phase = time.perf_counter()
+    sp_cards(cfg, batch, refs, root, dev, card)
+    say(f"phase: sp across cards {time.perf_counter() - t_phase:.1f} s")
+
+
+def sp_only() -> int:
+    """``python3 chip_smoke.py --sp``: only phase 14 (packs the train batch at (12, 12, 12))."""
+    return phase_only(sp_phase)
 
 
 def serve(cfg, samples, seeds, dev, card, requests=REQUESTS, clients=CLIENTS):
@@ -3497,10 +3996,14 @@ def main() -> int:
         # 13. data parallelism: two gloo ranks sharing the card, NCCL at one rank, and on a
         # host of several cards NCCL at one rank a card with the CLI's --mesh-data
         dp_phase(cfg_t, grid_flags, root, dev, card)
+
+        # 14. floor sharding: two gloo ranks sharing the card, and on a host of several
+        # cards NCCL at one rank a card
+        sp_phase(root, dev, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # 14. kernels line: the training kernels' times are one generator stack
+    # 15. kernels line: the training kernels' times are one generator stack
     # (14 layer launches) at the step's shapes; each kernel at f32 and at bf16 storage,
     # launches from that dtype's main path (the server's, 3 train steps)
     kernels = []
@@ -3534,7 +4037,7 @@ def main() -> int:
     say(f"total: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
 
-    # 15. result line, last
+    # 16. result line, last
     if any(srv._thread.is_alive() for srv in servers) or any(th.is_alive() for th in threads):
         raise AssertionError("a server or client thread is still running")
     say(json.dumps({"ok": True, "device": {
@@ -3584,6 +4087,8 @@ if __name__ == "__main__":
         sys.exit(steps_only(int(sys.argv[2])))
     if len(sys.argv) == 2 and sys.argv[1] == "--dp":
         sys.exit(dp_only())
+    if len(sys.argv) == 2 and sys.argv[1] == "--sp":
+        sys.exit(sp_only())
     if len(sys.argv) in (2, 3) and sys.argv[1] == "--time-hourglass":
         sys.exit(time_hourglass_only(sys.argv[2] if len(sys.argv) == 3 else None))
     sys.exit(main())

@@ -18,6 +18,7 @@ LAZY_ONLY = ("tensorboardX", "matplotlib", "mpl_toolkits", "PIL")
 TRAINER_SLICE = ("data/pipeline.py", "checkpoint/ckpt.py", "train/trainer.py", "train/writer.py",
                  "cli/main.py")
 DP_SLICE = ("parallel/mesh.py", "parallel/dp.py")
+SP_SLICE = ("parallel/sp.py",)
 
 
 def _sources():
@@ -60,7 +61,7 @@ def _import_time_nodes(tree):
 def test_walk_finds_the_port():
     paths = _sources()
     assert os.path.exists(paths[0]), "chip_smoke.py is missing"
-    for module in ("ops/hourglass.py",) + TRAINER_SLICE + DP_SLICE:
+    for module in ("ops/hourglass.py",) + TRAINER_SLICE + DP_SLICE + SP_SLICE:
         assert any(p.endswith(os.path.join("building_gan_torch", *module.split("/"))) for p in paths)
 
 
