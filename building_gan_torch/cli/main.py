@@ -35,8 +35,10 @@ layout keeps the hourglass generator), ``--batch-level-matching`` and
 and Q5, and ``--grid-buckets 6x6x6,8x8x8,11x12x12`` packs each building at
 its smallest fitting grid shape.
 ``COMPUTE_DTYPE`` defaults to bfloat16 (f32 parameters, bf16 activations), as
-in the JAX package; ``--compute-dtype float32`` computes in f32.  A checkpoint
-holds f32 parameters at either dtype.  ``train``, ``sanity`` and ``test`` take
+in the JAX package; ``--compute-dtype float32`` computes in f32.  As in the
+JAX CLI, float16 is not a choice here: it comes in through ``Configuration``
+(and ``scripts/torch_demo_train.py --compute-dtype float16``).  A checkpoint
+holds f32 parameters at any dtype.  ``train``, ``sanity`` and ``test`` take
 ``--mesh-data N`` (data parallelism, ``parallel/dp.py``): above 1 the CLI
 starts N ranks itself, one process each (``torch.multiprocessing``, spawn),
 rank r on ``cuda:r`` over NCCL, or on the CPU over gloo with ``--device cpu``;

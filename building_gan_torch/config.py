@@ -5,8 +5,8 @@ Knobs that only schedule TPU work (``PACK_NARROW_GEMMS``, ``UNROLL_CRITIC``,
 ``REMAT_HOURGLASS``, ``PRNG_IMPL``, ``DEVICE_RESIDENT_DATA``, ...) are kept
 as fields so a run configuration maps 1:1, and are read by nothing in the
 port.  ``compute_dtype`` / ``param_dtype`` map the dtype names to torch
-dtypes; ``require_ported_dtype`` refuses a COMPUTE_DTYPE the port does
-not compute in (float16).
+dtypes; ``require_ported_dtype`` refuses a COMPUTE_DTYPE that names none of
+them.
 """
 
 from __future__ import annotations
@@ -50,8 +50,9 @@ PROGRAM_NAMES: Dict[int, str] = {
 
 NUM_CLASSES = len(COLORS)  # 7
 
-# Compute dtypes the port takes (float16: ROADMAP.md Queue A).
-PORTED_DTYPES = ("float32", "bfloat16")
+# Compute dtypes the port takes, in the order of the CUDA kernels' storage codes
+# (ops/hourglass.py::STORAGE_DTYPES).
+PORTED_DTYPES = ("float32", "bfloat16", "float16")
 
 _TORCH_DTYPES = {
     "float32": torch.float32,
@@ -222,11 +223,11 @@ class Configuration:
         return os.path.join(self.DATA_PATH, "voxel_data")
 
     def require_ported_dtype(self, where: str) -> None:
-        """Raise unless COMPUTE_DTYPE is one the port computes in: "float32" or "bfloat16"."""
+        """Raise unless COMPUTE_DTYPE names a dtype the port computes in (``PORTED_DTYPES``)."""
         if self.COMPUTE_DTYPE not in PORTED_DTYPES:
             raise ValueError(
                 f"{where}: COMPUTE_DTYPE={self.COMPUTE_DTYPE!r} is not ported; the port computes "
-                f"in {' or '.join(PORTED_DTYPES)} (on the command line: --compute-dtype)"
+                f"in {', '.join(PORTED_DTYPES)}"
             )
 
     def to_dict(self) -> Dict[str, object]:

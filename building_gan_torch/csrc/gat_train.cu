@@ -1,9 +1,9 @@
 // Training GAT hourglass layer for Hopper (sm_90a), f32 on the CUDA cores
 // (no TF32): forward and backward kernels, with the activations x, y, gy and
-// gx stored as f32 or as bf16 (the JAX package's default COMPUTE_DTYPE; the
-// TPU kernel reads x.dtype and writes y and gx in it, its math and weight
-// grads f32).  Everything between the loads and the stores is the same in
-// both: the saved residuals, the weights and their grads stay f32.
+// gx stored as f32, as bf16 (the JAX package's default COMPUTE_DTYPE) or as
+// f16 (the TPU kernel reads x.dtype and writes y and gx in it, its math and
+// weight grads f32).  Everything between the loads and the stores is the same
+// in all three: the saved residuals, the weights and their grads stay f32.
 //
 // Replaces building_gan_tpu/ops/pallas/gat_train.py::_fwd_kernel (one layer
 // forward, reached through make_fused_layer and hourglass_train) and
@@ -83,6 +83,7 @@
 // wrapped row carries alpha = 0 in the TPU kernel's circular roll.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -129,21 +130,24 @@ __device__ __forceinline__ void store8(float* dst, const float (&p)[8]) {
   *reinterpret_cast<float4*>(dst + 4) = make_float4(p[4], p[5], p[6], p[7]);
 }
 
-// Activation storage (x, y, gy, gx): float, or __nv_bfloat16 (T).  A bf16
-// value is read as the float it is and a result rounded once to the nearest
-// even bf16 when written; every sum inside stays f32 or f64.  Row vector loads
-// and stores (float2 / float4) are the f32 storage's only: bf16 rows go element
-// by element.
+// Activation storage (x, y, gy, gx): float, __nv_bfloat16 or __half (T).  A
+// 16-bit value is read as the float it is and a result rounded once to the
+// nearest even value of T when written; every sum inside stays f32 or f64.
+// Row vector loads and stores (float2 / float4) are the f32 storage's only:
+// 16-bit rows go element by element.
 template <class T>
 constexpr bool kF32 = std::is_same<T, float>::value;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 
 template <class T>
 __device__ __forceinline__ T from_float(float v) {
   if constexpr (kF32<T>)
     return v;
+  else if constexpr (std::is_same<T, __half>::value)
+    return __float2half_rn(v);
   else
     return __float2bfloat16_rn(v);
 }
@@ -1414,7 +1418,8 @@ int backward_v(const T* x, const float* planes, const float* w, const float* att
 extern "C" {
 
 // One layer forward (3 launches).  Device pointers: x (B, R, cmax) and y in
-// the activation storage `bf16` names (0: float, 1: __nv_bfloat16), planes
+// the activation storage `storage` names (0: float, 1: __nv_bfloat16, 2:
+// __half), planes
 // (B, R, 8), w (cmax, cmax) as (in, out), att (2, cmax), vec (4, cmax) = conv
 // bias, gn weight, gn bias, mean_scale; key (2,) int64 Philox words (read only
 // when levels > 0).  Outputs: y (B, R, cmax) and, saved for the backward, h
@@ -1425,22 +1430,24 @@ extern "C" {
 // first CUDA error (0 on success; gt_failed_step names the step).
 int gt_forward(const void* x, const float* planes, const float* w, const float* att,
                const float* vec, const long long* key, int levels, int B, int F, int Y, int X,
-               int cmax, int ci, int co, int K, int bf16, float slope, float eps, void* y, float* h,
+               int cmax, int ci, int co, int K, int storage, float slope, float eps, void* y, float* h,
                float* v, float* scores, float* alphas, unsigned* bits, double* stats, float* nk,
                double* part, float* cnt, void* stream) {
-  if (bad_dims(levels, B, F, Y, X, cmax, ci, co, K) || (levels > 0 && key == nullptr)) {
+  if (bad_dims(levels, B, F, Y, X, cmax, ci, co, K) || (levels > 0 && key == nullptr) ||
+      storage < 0 || storage > 2) {
     g_failed = "the argument checks";
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
   const int R = F * Y * X;
-#define GT_FORWARD(V)                                                                       \
-  (bf16 ? forward_v<V>(static_cast<const __nv_bfloat16*>(x), planes, w, att, vec, key, levels, B, \
-                       R, Y, X, cmax, ci, co, K, slope, eps, static_cast<__nv_bfloat16*>(y), h,  \
-                       v, scores, alphas, bits, stats, nk, part, cnt, s)                         \
-        : forward_v<V>(static_cast<const float*>(x), planes, w, att, vec, key, levels, B, R, Y, \
-                       X, cmax, ci, co, K, slope, eps, static_cast<float*>(y), h, v, scores,     \
-                       alphas, bits, stats, nk, part, cnt, s))
+#define GT_FORWARD_T(V, T)                                                                   \
+  forward_v<V>(static_cast<const T*>(x), planes, w, att, vec, key, levels, B, R, Y, X, cmax, ci, \
+               co, K, slope, eps, static_cast<T*>(y), h, v, scores, alphas, bits, stats, nk,    \
+               part, cnt, s)
+#define GT_FORWARD(V)                                             \
+  (storage == 1   ? GT_FORWARD_T(V, __nv_bfloat16)                \
+   : storage == 2 ? GT_FORWARD_T(V, __half)                       \
+                  : GT_FORWARD_T(V, float))
   switch (lane_width(co)) {
     case 1: return GT_FORWARD(1);
     case 2: return GT_FORWARD(2);
@@ -1448,36 +1455,37 @@ int gt_forward(const void* x, const float* planes, const float* w, const float* 
     default: return GT_FORWARD(4);
   }
 #undef GT_FORWARD
+#undef GT_FORWARD_T
 }
 
 // One layer backward (4 launches).  Inputs as gt_forward, what it saved (h, v,
 // scores, alphas, bits, stats, nk), and gy (B, R, cmax).  Outputs gx (B, R,
 // cmax), gw (cmax, cmax), gatt (2, cmax), gvec (4, cmax); x, gy and gx in the
-// storage `bf16` names, the rest f32.  Scratch: gu (B, R, co), de (B, R, 8),
+// storage `storage` names, the rest f32.  Scratch: gu (B, R, co), de (B, R, 8),
 // part (B, P, K, 2, co) f64, pbias (B, P, co), pgn (B, 3, co) f64, patt (B, P,
 // 2, co), pw (B, P, ci, co).
 int gt_backward(const void* x, const float* planes, const float* w, const float* att,
                 const float* vec, const long long* key, int levels, int B, int F, int Y, int X,
-                int cmax, int ci, int co, int K, int bf16, float slope, const float* h,
+                int cmax, int ci, int co, int K, int storage, float slope, const float* h,
                 const float* v, const float* scores, const float* alphas, const unsigned* bits,
                 const double* stats, const float* nk, const void* gy, void* gx, float* gw,
                 float* gatt, float* gvec, float* gu, float* de, double* part, float* pbias,
                 double* pgn, float* patt, float* pw, void* stream) {
-  if (bad_dims(levels, B, F, Y, X, cmax, ci, co, K) || (levels > 0 && key == nullptr)) {
+  if (bad_dims(levels, B, F, Y, X, cmax, ci, co, K) || (levels > 0 && key == nullptr) ||
+      storage < 0 || storage > 2) {
     g_failed = "the argument checks";
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
   const int R = F * Y * X;
-#define GT_BACKWARD(V)                                                                       \
-  (bf16 ? backward_v<V>(static_cast<const __nv_bfloat16*>(x), planes, w, att, vec, levels, B, R, \
-                        Y, X, cmax, ci, co, K, slope, h, v, scores, alphas, bits, stats, nk,     \
-                        static_cast<const __nv_bfloat16*>(gy), static_cast<__nv_bfloat16*>(gx), \
-                        gw, gatt, gvec, gu, de, part, pbias, pgn, patt, pw, s)                   \
-        : backward_v<V>(static_cast<const float*>(x), planes, w, att, vec, levels, B, R, Y, X,  \
-                        cmax, ci, co, K, slope, h, v, scores, alphas, bits, stats, nk,           \
-                        static_cast<const float*>(gy), static_cast<float*>(gx), gw, gatt, gvec, \
-                        gu, de, part, pbias, pgn, patt, pw, s))
+#define GT_BACKWARD_T(V, T)                                                                  \
+  backward_v<V>(static_cast<const T*>(x), planes, w, att, vec, levels, B, R, Y, X, cmax, ci, co, \
+                K, slope, h, v, scores, alphas, bits, stats, nk, static_cast<const T*>(gy),      \
+                static_cast<T*>(gx), gw, gatt, gvec, gu, de, part, pbias, pgn, patt, pw, s)
+#define GT_BACKWARD(V)                                              \
+  (storage == 1   ? GT_BACKWARD_T(V, __nv_bfloat16)                 \
+   : storage == 2 ? GT_BACKWARD_T(V, __half)                        \
+                  : GT_BACKWARD_T(V, float))
   switch (lane_width(co)) {
     case 1: return GT_BACKWARD(1);
     case 2: return GT_BACKWARD(2);
@@ -1485,6 +1493,7 @@ int gt_backward(const void* x, const float* planes, const float* w, const float*
     default: return GT_BACKWARD(4);
   }
 #undef GT_BACKWARD
+#undef GT_BACKWARD_T
 }
 
 // The dropout bytes of flat elements 0..n-1 under key (a check of csrc/philox.cuh).

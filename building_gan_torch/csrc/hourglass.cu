@@ -1,5 +1,6 @@
 // Deterministic GAT hourglass forward for Hopper (sm_90a), f32 math, with x
-// and out stored as f32 or as bf16 (the JAX package's default COMPUTE_DTYPE).
+// and out stored as f32, as bf16 (the JAX package's default COMPUTE_DTYPE) or
+// as f16.
 //
 // Replaces building_gan_tpu/ops/pallas/hourglass.py::_kernel (reached through
 // hourglass_fwd): the whole GATCONV + GraphNorm + ReLU stack of the generator,
@@ -10,12 +11,12 @@
 //           neighbour; softmax over {self, 6 row shifts +-1, +-X, +-Y*X}
 //     v   = mask * sum_d alpha_d h[nbr_d] + bias
 //     y   = ReLU(GraphNorm(v)), statistics per (slot, gid key), 0 off the mask
-// x and out are (B, R, cmax) with R = F*Y*X rows a slot.  With bf16 storage
-// x is read as the floats it holds, each layer's output is rounded to bf16
-// before the next layer reads it (as the plain bf16 stack and the training
-// kernels, csrc/gat_train.cu, round theirs), and out is written in bf16; the
-// last layer's v, which the f32 kernel keeps in out, goes to an f32 buffer
-// (vlast) instead.
+// x and out are (B, R, cmax) with R = F*Y*X rows a slot.  With bf16 or f16
+// storage x is read as the floats it holds, each layer's output is rounded to
+// the storage type (to nearest even) before the next layer reads it (as the
+// plain twin and the training kernels, csrc/gat_train.cu, round theirs), and
+// out is written in it; the last layer's v, which the f32 kernel keeps in
+// out, goes to an f32 buffer (vlast) instead.
 //
 // What bounds it.  At the config of record (hidden 128, repeat 7, grid
 // (11, 12, 12), 16 slots, K = 1) the stack does 1.34 GFLOP of f32 (the GEMMs
@@ -86,10 +87,12 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <mutex>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -322,21 +325,35 @@ __device__ __forceinline__ float4 load_row4(const float* row, int c, int n, bool
                      c + 3 < n ? row[c + 3] : 0.f);
 }
 
-// The same from a bf16 row (element by element), and to one, each value rounded once.
-__device__ __forceinline__ float4 load_row4_bf16(const __nv_bfloat16* row, int c, int n) {
-  return make_float4(__bfloat162float(row[c]), c + 1 < n ? __bfloat162float(row[c + 1]) : 0.f,
-                     c + 2 < n ? __bfloat162float(row[c + 2]) : 0.f,
-                     c + 3 < n ? __bfloat162float(row[c + 3]) : 0.f);
+// A 16-bit storage value as the float it is, and a float rounded once to it.
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
+
+template <class T>
+__device__ __forceinline__ T from_float(float v) {
+  if constexpr (std::is_same<T, __half>::value)
+    return __float2half_rn(v);
+  else
+    return __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ void store_row4_bf16(__nv_bfloat16* row, int c, int n, float4 v) {
-  row[c] = __float2bfloat16_rn(v.x);
-  if (c + 1 < n) row[c + 1] = __float2bfloat16_rn(v.y);
-  if (c + 2 < n) row[c + 2] = __float2bfloat16_rn(v.z);
-  if (c + 3 < n) row[c + 3] = __float2bfloat16_rn(v.w);
+template <class T>
+__device__ __forceinline__ float round_to(float v) { return to_float(from_float<T>(v)); }
+
+// The same from a 16-bit row (element by element), and to one, each value rounded once.
+template <class T>
+__device__ __forceinline__ float4 load_row4_16(const T* row, int c, int n) {
+  return make_float4(to_float(row[c]), c + 1 < n ? to_float(row[c + 1]) : 0.f,
+                     c + 2 < n ? to_float(row[c + 2]) : 0.f, c + 3 < n ? to_float(row[c + 3]) : 0.f);
 }
 
-__device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+template <class T>
+__device__ __forceinline__ void store_row4_16(T* row, int c, int n, float4 v) {
+  row[c] = from_float<T>(v.x);
+  if (c + 1 < n) row[c + 1] = from_float<T>(v.y);
+  if (c + 2 < n) row[c + 2] = from_float<T>(v.z);
+  if (c + 3 < n) row[c + 3] = from_float<T>(v.w);
+}
 
 __device__ __forceinline__ void store_row4(float* row, int c, int n, bool vec, float4 v) {
   if (vec) {
@@ -349,10 +366,11 @@ __device__ __forceinline__ void store_row4(float* row, int c, int n, bool vec, f
   if (c + 3 < n) row[c + 3] = v.w;
 }
 
-// kBf16: x and out hold bf16 (and vlast the last layer's v), else f32 (vlast ==
-// out).  An instance a storage type: a runtime flag's extra code made the f32
-// kernel spill at 128 registers and run ~20% slower.
-template <bool kBf16>
+// T: the storage type of x and out, float (vlast == out) or a 16-bit type,
+// __nv_bfloat16 or __half (vlast holds the last layer's v).  An instance a
+// storage type: a runtime flag's extra code made the f32 kernel spill at 128
+// registers and run ~20% slower.
+template <class T>
 __global__ void __launch_bounds__(kThreads, 2)
 hg_cluster_kernel(const void* __restrict__ x, const float* __restrict__ mask,
                   const int* __restrict__ gid, const float* __restrict__ Ws,
@@ -407,10 +425,10 @@ hg_cluster_kernel(const void* __restrict__ x, const float* __restrict__ mask,
   for (int i = t; i < nrows * q4; i += kThreads) {
     const int rr = i / q4, c = 4 * (i % q4);
     const size_t row = (slot + r0 + rr) * cmax;
-    if constexpr (kBf16)
-      st4(xs + rr * S + c, load_row4_bf16(static_cast<const __nv_bfloat16*>(x) + row, c, cmax));
-    else
+    if constexpr (std::is_same<T, float>::value)
       st4(xs + rr * S + c, load_row4(static_cast<const float*>(x) + row, c, cmax, vec));
+    else
+      st4(xs + rr * S + c, load_row4_16(static_cast<const T*>(x) + row, c, cmax));
   }
   for (int rr = t; rr < nrows; rr += kThreads) {
     const int r = r0 + rr;
@@ -760,7 +778,7 @@ hg_cluster_kernel(const void* __restrict__ x, const float* __restrict__ mask,
     mark(trace, trl + 6);
 
     // (5) y = ReLU(v * scale + shift) on the mask, 0 off it, in place over v
-    // (bf16 storage: rounded to bf16, and the last layer's to out)
+    // (16-bit storage: rounded to it, and the last layer's to out)
     {
       const float* ss = over;
       for (int base = w * rpw; base < nrows; base += kWarps * rpw) {
@@ -778,13 +796,14 @@ hg_cluster_kernel(const void* __restrict__ x, const float* __restrict__ mask,
             y[j] = fmaxf(fmaf(vv[j], ss[(2 * key) * cmax + c + j], ss[(2 * key + 1) * cmax + c + j]), 0.f);
         }
         const float4 y4 = make_float4(y[0], y[1], y[2], y[3]);
-        if constexpr (!kBf16) {
+        if constexpr (std::is_same<T, float>::value) {
           store_row4(vr, c, co, vvec, y4);
         } else if (last) {
-          store_row4_bf16(static_cast<__nv_bfloat16*>(out) + (slot + r0 + rr) * cmax, c, co, y4);
+          store_row4_16(static_cast<T*>(out) + (slot + r0 + rr) * cmax, c, co, y4);
         } else {
           store_row4(vr, c, co, vvec,
-                     make_float4(round_bf16(y4.x), round_bf16(y4.y), round_bf16(y4.z), round_bf16(y4.w)));
+                     make_float4(round_to<T>(y4.x), round_to<T>(y4.y), round_to<T>(y4.z),
+                                 round_to<T>(y4.w)));
         }
       }
       __syncthreads();  // y complete before the next GEMM reads it and restages W
@@ -793,20 +812,25 @@ hg_cluster_kernel(const void* __restrict__ x, const float* __restrict__ mask,
   }
 }
 
-// The kernel instance of a storage type.
-using Kernel = decltype(&hg_cluster_kernel<false>);
-Kernel kernel_for(bool bf16) { return bf16 ? hg_cluster_kernel<true> : hg_cluster_kernel<false>; }
+// The kernel instance of a storage code (0: float, 1: __nv_bfloat16, 2: __half).
+constexpr int kStorages = 3;
+using Kernel = decltype(&hg_cluster_kernel<float>);
+Kernel kernel_for(int storage) {
+  return storage == 1 ? hg_cluster_kernel<__nv_bfloat16>
+         : storage == 2 ? hg_cluster_kernel<__half>
+                        : hg_cluster_kernel<float>;
+}
 
 // Dynamic shared memory beyond 48 KB, and cluster sizes above 8, have to be
 // allowed per kernel instance and device first.  cudaFuncSetAttribute costs
 // host time on every call, so each grant is raised to the largest size asked
 // so far and left there.  The occupancy queries of the cluster choice are
 // kept per (device, cluster size, bytes) for the same reason; they ask the
-// f32 instance, which answers for both: each is held to 128 registers by its
-// launch bounds and takes the same shared memory.
+// f32 instance, which answers for all three: each is held to 128 registers by
+// its launch bounds and takes the same shared memory.
 std::mutex g_mutex;
-int g_smem_granted[2][64];
-bool g_nonportable[2][64];
+int g_smem_granted[kStorages][64];
+bool g_nonportable[kStorages][64];
 int g_sms[64];
 
 struct Occupancy {
@@ -815,26 +839,26 @@ struct Occupancy {
 Occupancy g_occ[256];
 int g_occ_n = 0;
 
-cudaError_t allow_locked(int device, int bytes, int C, bool bf16) {
+cudaError_t allow_locked(int device, int bytes, int C, int storage) {
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
-  if (bytes > g_smem_granted[bf16][device]) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel_for(bf16), cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (bytes > g_smem_granted[storage][device]) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel_for(storage),
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
-    g_smem_granted[bf16][device] = bytes;
+    g_smem_granted[storage][device] = bytes;
   }
-  if (C > kPortableCluster && !g_nonportable[bf16][device]) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel_for(bf16), cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (C > kPortableCluster && !g_nonportable[storage][device]) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel_for(storage),
+                                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
-    g_nonportable[bf16][device] = true;
+    g_nonportable[storage][device] = true;
   }
   return cudaSuccess;
 }
 
-cudaError_t allow(int device, int bytes, int C, bool bf16) {
+cudaError_t allow(int device, int bytes, int C, int storage) {
   std::lock_guard<std::mutex> lock(g_mutex);
-  return allow_locked(device, bytes, C, bf16);
+  return allow_locked(device, bytes, C, storage);
 }
 
 void launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int B, int C, int bytes,
@@ -859,15 +883,15 @@ cudaError_t occupancy(int device, int C, int bytes, Occupancy* o) {
       *o = g_occ[i];
       return cudaSuccess;
     }
-  cudaError_t e = allow_locked(device, bytes, C, false);
+  cudaError_t e = allow_locked(device, bytes, C, 0);
   if (e != cudaSuccess) return e;
   *o = Occupancy{device, C, bytes, 0, 0};
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   launch_config(&cfg, attr, C, C, bytes, nullptr);
-  e = cudaOccupancyMaxActiveClusters(&o->clusters, kernel_for(false), &cfg);
+  e = cudaOccupancyMaxActiveClusters(&o->clusters, kernel_for(0), &cfg);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o->per_sm, kernel_for(false), kThreads, bytes);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o->per_sm, kernel_for(0), kThreads, bytes);
   if (e == cudaSuccess && g_sms[device] == 0)
     e = cudaDeviceGetAttribute(&g_sms[device], cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return e;
@@ -933,9 +957,9 @@ int choose_cluster(int B, int R, const Chans& ch, int cmax, int K, int device) {
 extern "C" {
 
 // Runs the whole stack in one launch: a cluster of `cluster` CTAs a slot (0:
-// hg_cluster_size's choice).  Device pointers: x, out (B, R, cmax), f32 or,
-// with `bf16` set, bf16; vlast (B, R, cmax) f32 for the last layer's v (null
-// with f32 storage: out holds it); mask
+// hg_cluster_size's choice).  Device pointers: x, out (B, R, cmax) in the
+// storage `storage` names (0: f32, 1: bf16, 2: f16); vlast (B, R, cmax) f32
+// for the last layer's v with 16-bit storage (null with f32: out holds it); mask
 // (B, R), gid (B, R) int32 or null (K == 1), Ws (L, cmax, cmax), atts (L, 2,
 // cmax), vecs (L, 4, cmax) holding conv bias, GraphNorm weight, bias,
 // mean_scale; x and out 16-byte aligned when cmax is a multiple of 4.  chans
@@ -948,15 +972,16 @@ extern "C" {
 // (0 on success).
 int hg_forward(const void* x, const float* mask, const int* gid, int K, const float* Ws,
                const float* atts, const float* vecs, const int* chans, int L, int B, int F,
-               int Y, int X, int cmax, float slope, float eps, void* out, float* vlast, int bf16,
+               int Y, int X, int cmax, float slope, float eps, void* out, float* vlast, int storage,
                int cluster, unsigned long long* trace, void* stream) {
   const int R = F * Y * X;
   Chans ch;
   if (!make_chans(chans, L, cmax, &ch) || K < 1 || K > kMaxKeys || (K > 1 && gid == nullptr) ||
       B < 1 || B > 65535 || F < 1 || Y < 1 || X < 1)
     return (int)cudaErrorInvalidValue;
-  if (bf16 ? vlast == nullptr : vlast != nullptr) return (int)cudaErrorInvalidValue;
-  if (!bf16) vlast = static_cast<float*>(out);
+  if (storage < 0 || storage >= kStorages || (storage ? vlast == nullptr : vlast != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (!storage) vlast = static_cast<float*>(out);
   if (cmax % 4 == 0 &&
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out) |
         reinterpret_cast<uintptr_t>(vlast)) & 15))
@@ -968,12 +993,12 @@ int hg_forward(const void* x, const float* mask, const int* gid, int K, const fl
   if (C < 1 || C > kMaxCluster) return (int)cudaErrorInvalidConfiguration;
   const int bytes = smem_bytes(R, ch, cmax, K, C);
   if (bytes > kSmemLimit) return (int)cudaErrorInvalidConfiguration;
-  e = allow(device, bytes, C, bf16);
+  e = allow(device, bytes, C, storage);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   launch_config(&cfg, attr, B, C, bytes, (cudaStream_t)stream);
-  e = cudaLaunchKernelEx(&cfg, kernel_for(bf16), x, mask, gid, Ws, atts, vecs, out, vlast, ch, R, Y,
+  e = cudaLaunchKernelEx(&cfg, kernel_for(storage), x, mask, gid, Ws, atts, vecs, out, vlast, ch, R, Y,
                          X, cmax, K, slope, eps, trace);
   if (e == cudaSuccess) e = cudaGetLastError();
   return (int)e;

@@ -299,7 +299,7 @@ def _sorted_json_files(directory: str) -> List[str]:
 
 
 def _process_one(args) -> int:
-    gp, lp, vp, cfg = args
+    gp, lp, vp, cfg, use_native = args
     num_g = os.path.basename(gp).replace(".json", "").split("_")[-1]
     num_l = os.path.basename(lp).replace(".json", "").split("_")[-1]
     num_v = os.path.basename(vp).replace(".json", "").split("_")[-1]
@@ -307,12 +307,17 @@ def _process_one(args) -> int:
         raise ValueError(f"mismatched building files: {gp}, {lp}, {vp}")
     data_number = "".join(s for s in os.path.basename(gp) if s.isdigit())
 
-    with open(gp) as f:
-        g_data = json.load(f)
-    with open(lp) as f:
-        l_data = json.load(f)
-    with open(vp) as f:
-        v_data = json.load(f)
+    if use_native:
+        from ..native import parser as native_parser
+
+        g_data, l_data, v_data = native_parser.parse_triplet(gp, lp, vp)
+    else:
+        with open(gp) as f:
+            g_data = json.load(f)
+        with open(lp) as f:
+            l_data = json.load(f)
+        with open(vp) as f:
+            v_data = json.load(f)
 
     local, voxel = process_building(g_data, l_data, v_data, cfg, data_number)
     save_local(os.path.join(cfg.SAVE_DATA_PATH, f"{data_number}{cfg.LOCAL_DATA_SUFFIX}"), local)
@@ -320,10 +325,20 @@ def _process_one(args) -> int:
     return 1
 
 
-def create_dataset(configuration: Configuration, verbose: bool = True, workers: int = 0) -> int:
+def create_dataset(
+    configuration: Configuration,
+    verbose: bool = True,
+    use_native: bool = True,
+    workers: int = 0,
+) -> int:
     """Process every raw JSON triplet under ``DATA_PATH`` to NPZ pairs in
-    ``SAVE_DATA_PATH``; returns the count.  ``workers > 1`` spreads the
-    buildings over a pool of that many processes."""
+    ``SAVE_DATA_PATH``; returns the count.
+
+    ``use_native`` parses the JSON with the C++ parser (``native/parser.py``,
+    built at first use, here in the calling process before any worker starts;
+    a failed build raises), else with Python's ``json``: the same NPZ files.
+    ``workers > 1`` spreads the buildings over a pool of that many processes.
+    """
     cfg = configuration
     global_files = _sorted_json_files(cfg.GLOBAL_GRAPH_DATA_PATH)
     local_files = _sorted_json_files(cfg.LOCAL_GRAPH_DATA_PATH)
@@ -335,8 +350,13 @@ def create_dataset(configuration: Configuration, verbose: bool = True, workers: 
         )
 
     os.makedirs(cfg.SAVE_DATA_PATH, exist_ok=True)
+    if use_native:
+        from ..native import parser as native_parser
 
-    tasks = [(gp, lp, vp, cfg) for gp, lp, vp in zip(global_files, local_files, voxel_files)]
+        native_parser.load()  # one build, before the workers load it
+
+    tasks = [(gp, lp, vp, cfg, use_native)
+             for gp, lp, vp in zip(global_files, local_files, voxel_files)]
     n = 0
     if workers and workers > 1:
         import multiprocessing as mp

@@ -25,9 +25,9 @@ CUDA tensors each layer is ``_FusedLayer``: the forward kernel
 ``gt_backward``, with gradients to x, W, att and vec.  Anything else raises;
 there is no fallback from the kernel to the plain version.
 
-Activations (x, y and their grads) are float32 or bfloat16, as the TPU kernel
-takes ``x.dtype``: the math inside stays f32, the weights and their grads
-f32, and a bf16 layer rounds only what it writes (y, gx).
+Activations (x, y and their grads) are float32, bfloat16 or float16, as the
+TPU kernel takes ``x.dtype``: the math inside stays f32, the weights and their
+grads f32, and a 16-bit layer rounds only what it writes (y, gx).
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ from typing import Sequence, Tuple
 import torch
 
 from . import dropout as drop
-from .hourglass import STORAGE_DTYPES, LaunchCounter, _check, storage_flag
+from .hourglass import STORAGE_DTYPES, LaunchCounter, _check, storage_code
 from .stencil import NEG_INF, _nbr_valid_flat, shift
 
 MAX_CHANNELS = 128
@@ -92,9 +92,9 @@ def layer_plain(
 ) -> torch.Tensor:
     """One training layer in plain PyTorch: math in f32, or in f64 for an f64 x (a reference).
 
-    A bf16 x is the kernels' bf16 storage mode: read as f32, the layer in f32,
-    y rounded to bf16 (and by autograd gx rounded to bf16, the weight grads
-    f32).  The arithmetic of ``gat_train.py::_fwd_kernel``; autograd gives the
+    A bf16 or f16 x is the kernels' 16-bit storage mode: read as f32, the
+    layer in f32, y rounded to x's dtype (and by autograd gx rounded to it,
+    the weight grads f32).  The arithmetic of ``gat_train.py::_fwd_kernel``; autograd gives the
     gradients of ``_bwd_kernel``.  The softmax shift is detached and the
     variance clamp passes its gradient straight through, as the closed-form
     backward does.  LeakyReLU is ``where(v >= 0, v, slope * v)``, whose
@@ -171,7 +171,7 @@ def hourglass_train_plain(x, planes, Ws, atts, vecs, keys, grid_shape, K=1, leve
 def _bind(lib):
     """Declare the C signatures of ``csrc/gat_train.cu`` on a loaded library."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    dims = [i, i, i, i, i, i, i, i, i, i]  # levels, B, F, Y, X, cmax, ci, co, K, bf16
+    dims = [i, i, i, i, i, i, i, i, i, i]  # levels, B, F, Y, X, cmax, ci, co, K, storage code
     lib.gt_forward.argtypes = (
         [p, p, p, p, p, p] + dims + [f, f]  # x, planes, w, att, vec, key; slope, eps
         + [p] * 10  # y, h, v, scores, alphas, bits, stats, nk, part, cnt
@@ -277,7 +277,7 @@ def launch_forward(lib, stream, x, planes, w, att, vec, key, meta):
     scratch = torch.empty(s_total, device=x.device, dtype=torch.float32)
     rc = lib.gt_forward(
         _ptr(x), _ptr(planes), _ptr(w), _ptr(att), _ptr(vec), _ptr(key),
-        levels, B, F, Y, X, cmax, ci, co, K, storage_flag(x), slope, eps,
+        levels, B, F, Y, X, cmax, ci, co, K, storage_code(x), slope, eps,
         _ptr(y), *_ptrs(saved, offsets), *_ptrs(scratch, s_off), stream,
     )
     _raise_on(lib, rc, "forward")
@@ -300,7 +300,7 @@ def launch_backward(lib, stream, gy, x, planes, w, att, vec, key, saved, meta):
     scratch = torch.empty(s_total, device=x.device, dtype=torch.float32)
     rc = lib.gt_backward(
         _ptr(x), _ptr(planes), _ptr(w), _ptr(att), _ptr(vec), _ptr(key),
-        levels, B, F, Y, X, cmax, ci, co, K, storage_flag(x), slope,
+        levels, B, F, Y, X, cmax, ci, co, K, storage_code(x), slope,
         *_ptrs(saved, offsets), _ptr(gy),
         _ptr(gx), _ptr(gw), _ptr(gatt), _ptr(gvec),
         *_ptrs(scratch, s_off), stream,

@@ -10,8 +10,9 @@ once into three zero-padded arrays:
 
 ``hourglass_fwd`` is the wrapper: on CPU tensors it runs ``hourglass_plain``;
 on CUDA tensors it launches ``csrc/hourglass.cu`` or raises.  x and the output
-are float32 or bfloat16 (the compute dtype); the math is f32 either way, and
-at bf16 each layer's output is rounded to bf16 before the next layer reads it.  GraphNorm
+are float32, bfloat16 or float16 (the compute dtype); the math is f32 either
+way, and at a 16-bit dtype each layer's output is rounded to it before the
+next layer reads it.  GraphNorm
 statistics are per (slot, gid key), so unlike the TPU kernel (per slot) it
 also matches the flax stack on multi-building (K>1) batches.
 
@@ -37,12 +38,14 @@ MAX_CHANNELS = 128
 MAX_KEYS = 16
 MAX_LAYERS = 64
 MAX_SLOTS = 65535  # the launch grid's y extent
-STORAGE_DTYPES = tuple(_TORCH_DTYPES[d] for d in PORTED_DTYPES)  # activations the kernels take
+# The activation dtypes the kernels take, in the order of their storage codes
+# (0: f32, 1: bf16, 2: f16), which csrc/hourglass.cu and csrc/gat_train.cu dispatch on.
+STORAGE_DTYPES = tuple(_TORCH_DTYPES[d] for d in PORTED_DTYPES)
 
 
-def storage_flag(x: torch.Tensor) -> int:
-    """The kernels' storage flag for x's dtype (1: bf16, 0: f32)."""
-    return int(x.dtype == torch.bfloat16)
+def storage_code(x: torch.Tensor) -> int:
+    """The kernels' storage code for x's dtype: its index in ``STORAGE_DTYPES``."""
+    return STORAGE_DTYPES.index(x.dtype)
 
 
 class LaunchCounter:
@@ -121,8 +124,8 @@ def hourglass_plain(
     """The kernel's arithmetic in plain PyTorch: (B, F, Y, X, Cmax) -> same shape, x's dtype.
 
     Math in float32 as the kernel's (or in float64 for an f64 x, a reference
-    for how far float32 rounding alone moves the result).  A bf16 x is the
-    kernel's bf16 storage mode: each layer's output is rounded to bf16.
+    for how far float32 rounding alone moves the result).  A bf16 or f16 x is
+    the kernel's 16-bit storage mode: each layer's output is rounded to x's dtype.
     """
     from ..models.grid_layers import graph_norm
 
@@ -153,7 +156,7 @@ def _bind(lib):
         ctypes.POINTER(ctypes.c_int), i,  # chans, L
         i, i, i, i, i,  # B, F, Y, X, cmax
         f, f,  # slope, eps
-        p, p, i,  # out, vlast (bf16: the last layer's f32 v; else null), bf16
+        p, p, i,  # out, vlast (16-bit storage: the last layer's f32 v; else null), storage code
         i, p,  # cluster (0: the kernel's choice), trace (null)
         p,  # stream
     ]
@@ -250,8 +253,8 @@ def hourglass_cuda(x, mask, Ws, atts, vecs, chans, gid=None, num_graphs=1,
     lib = _load()
     chans_c = c_chans(chans)
     out = torch.empty_like(x)
-    bf16 = storage_flag(x)
-    vlast = torch.empty(x.shape, device=dev, dtype=torch.float32) if bf16 else None
+    storage = storage_code(x)
+    vlast = torch.empty(x.shape, device=dev, dtype=torch.float32) if storage else None
     # x's card is the runtime's current device for the occupancy query and the
     # launch, which read it (cudaGetDevice), and its stream is the one launched on
     with torch.cuda.device(dev):
@@ -263,7 +266,7 @@ def hourglass_cuda(x, mask, Ws, atts, vecs, chans, gid=None, num_graphs=1,
             x.data_ptr(), mask.data_ptr(), None if gid is None else gid.data_ptr(), K,
             Ws.data_ptr(), atts.data_ptr(), vecs.data_ptr(), chans_c, L,
             B, F, Y, X, cmax, negative_slope, eps, out.data_ptr(),
-            None if vlast is None else vlast.data_ptr(), bf16, cluster, None, stream,
+            None if vlast is None else vlast.data_ptr(), storage, cluster, None, stream,
         )
     if rc != 0:
         raise RuntimeError(f"hourglass kernel launch failed: {lib.hg_error_string(rc).decode()}")
@@ -275,7 +278,7 @@ def hourglass_fwd(x, mask, Ws, atts, vecs, chans, gid=None, num_graphs=1,
                   negative_slope=0.2, eps=1e-5) -> torch.Tensor:
     """Deterministic hourglass forward: the kernel on CUDA, the plain version on CPU.
 
-    ``x`` (B, F, Y, X, Cmax) f32 or bf16 -> (B, F, Y, X, Cmax) in x's dtype.
+    ``x`` (B, F, Y, X, Cmax) f32, bf16 or f16 -> (B, F, Y, X, Cmax) in x's dtype.
     """
     if x.device.type == "cpu":
         return hourglass_plain(x, mask, Ws, atts, vecs, chans, gid, num_graphs, negative_slope, eps)

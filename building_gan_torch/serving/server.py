@@ -4,7 +4,8 @@ Port of ``building_gan_tpu/serving/server.py``:
 
 - requests (one building each: LocalGraph + VoxelGraph + seed) arrive from
   any thread via :meth:`InferenceServer.infer`;
-- the batcher forms micro-batches under a size-or-deadline policy;
+- the batcher forms micro-batches under a size-or-deadline policy: the C++
+  ``NativeBatcher`` (``native/batcher.cc``, built at first use);
 - one executor thread packs each micro-batch into a fixed-slot ``GridBatch``
   (always ``max_batch`` slots, so every batch has one shape) and runs the
   generator: a GATCONV generator with its hourglass fused
@@ -14,8 +15,8 @@ Port of ``building_gan_tpu/serving/server.py``:
 - z and the Gumbel noise of a request come from a ``torch.Generator`` seeded
   by the request's seed, so a building's output does not depend on its
   batchmates (the fused kernel keeps slots apart and uses no atomics);
-- the generator runs at ``COMPUTE_DTYPE`` (bf16 by default): the noise is
-  drawn in f32 and cast on entry, the logits come back f32.
+- the generator runs at ``COMPUTE_DTYPE`` (bf16 by default, or f32 or f16):
+  the noise is drawn in f32 and cast on entry, the logits come back f32.
 
 Results are per-voxel arrays in the request's own node order, with the
 version of the weights that served them (``params_version``: 0, then one
@@ -37,7 +38,7 @@ from ..models.fast_infer import fused_route
 from ..models.grid_models import GridVoxelGNNGenerator
 from ..ops.gumbel import gumbel_noise
 from ..ops.rng import normal_box_muller
-from .batcher import PyBatcher
+from .batcher import make_batcher
 
 
 class InferenceServer:
@@ -67,7 +68,7 @@ class InferenceServer:
         self.max_batch = max_batch
         self.params_version = 0
         self._weights = self._load(state_dict)
-        self._batcher = PyBatcher(max_batch, int(max_delay_ms * 1000))
+        self._batcher = make_batcher(max_batch, int(max_delay_ms * 1000))
         self._lock = threading.Lock()
         self._next_id = 0
         self._staged: dict = {}
@@ -89,12 +90,15 @@ class InferenceServer:
         return self
 
     def stop(self, timeout_s: float = 60.0) -> None:
-        """Shut the batcher down and join the executor; raises if it does not exit."""
+        """Shut the batcher down, join the executor and free the batcher (the native
+        handle: ``sb_destroy`` wakes and drains any client still blocked in ``wait``);
+        raises if the executor does not exit, and then leaves the batcher allocated."""
         self._batcher.shutdown()
         if self._thread is not None:
             self._thread.join(timeout=timeout_s)
             if self._thread.is_alive():
                 raise RuntimeError("inference executor did not stop")
+        self._batcher.close()
 
     def swap_params(self, state_dict) -> int:
         """Replace the served weights; batches already running finish on the old ones."""

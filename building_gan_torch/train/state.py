@@ -44,7 +44,7 @@ def create_train_state(cfg: Configuration, generator: nn.Module, discriminator: 
     """Move both modules to ``device`` (the card unless the caller asks for the CPU),
     then give each its Adam optimizer.  Parameters and Adam moments stay f32
     (``PARAM_DTYPE``) at any compute dtype.  Raises on a ``cfg.COMPUTE_DTYPE``
-    the port does not compute in (float16)."""
+    the port does not compute in (one not in ``PORTED_DTYPES``)."""
     cfg.require_ported_dtype("create_train_state")
     generator, discriminator = generator.to(device), discriminator.to(device)
     opt_g, opt_d = make_optimizers(cfg, generator, discriminator)

@@ -41,7 +41,7 @@ entry (the JAX step draws it in the compute dtype: the same values); it is
 shaped like the batch's cells, (B, F, Y, X, Z_DIM) or (NV, Z_DIM).
 
 Dtypes are the JAX step's: f32 parameters and Adam state, activations in
-``COMPUTE_DTYPE`` (bf16 by default, or f32), losses and metrics in f32, and
+``COMPUTE_DTYPE`` (bf16 by default, f32 or f16), losses and metrics in f32, and
 the gradient-penalty critic pass at ``GP_DTYPE`` ("compute", or "float32":
 the same critic's parameters run with f32 activations).
 
@@ -231,7 +231,7 @@ def make_train_step(cfg: Configuration, state: TrainState, group=None, sp=None,
     metrics, as detached tensors on the batch's device.  The batch must be on
     the modules' device (``create_train_state`` puts them on the card unless
     asked for the CPU); another raises.  So does a ``cfg.COMPUTE_DTYPE`` the port
-    does not compute in (float16).  With ``group`` the gradients, losses and
+    does not compute in (one not in ``PORTED_DTYPES``).  With ``group`` the gradients, losses and
     metrics are aggregated over its ranks (module docstring); every rank must
     call the step together, on batches of one shape.  With a floor shard ``sp``
     the batch is this rank's floors (``parallel/sp.py::make_sp_train_step``

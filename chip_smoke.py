@@ -7,6 +7,7 @@
         # the cards too on a host of 2 to 4)
     python3 chip_smoke.py --sp   # only phase 14 (floor sharding; NCCL on 2 and 4
         # cards too on a host of 4)
+    python3 chip_smoke.py --f16   # only phases 15 and 16 (float16, the native runtime)
     python3 chip_smoke.py --time-hourglass [DIR]   # only the serving kernel, timed;
         # DIR: a checkout whose building_gan_torch is timed instead (to compare trees)
 
@@ -154,21 +155,41 @@ Phases, one short output line or a few each:
      and calls, peak memory; on a host of 2-4 cards (``--sp``) the same with
      NCCL on 2 and on 4 cards, one rank process a card (6 and 3 floors each);
      on one card a line saying why that part did not run;
-  15. the run's seconds and a {"kernels": [...]} line: each kernel at f32 and
-     at bf16 storage ("dtype"), launches from that dtype's main path;
-  16. the server stopped, every thread joined, and the result line last.
+  15. COMPUTE_DTYPE float16 at the config of record's widths: (a) all three
+     kernels with f16 storage against their plain f16 twins and f64 (as phase
+     6's bf16 checks: the hourglass at the server's shapes, K=1 and K=4; both
+     training stacks each layer alone on the kernel's activations at the train
+     batch's 107 slots, K=6, dropout on, the stack equal to the chain bit for
+     bit); (b) the serving main path at f16 (48 requests, alone == batched, the
+     launches), the fused f16 generator against the f64 generator within 4x the
+     plain f16 generator's distance plus 1e-3, the plain f16 generator with
+     cuBLAS's reduced-precision f16 reductions on and off, the kernel timed;
+     (c) 3 f16 train steps at GP_DTYPE "compute" (150 / 80 / 30 launches; a
+     non-finite metric is printed and recorded, not raised: f16's range is a
+     property of the dtype) and one at "float32", ms, real voxel nodes/s, peak
+     memory; the stacks timed and held at the step's weights; one f16 eval
+     batch; (d) one f16 step of the edge layout and of the transformer: finite,
+     their launches;
+  16. the native host runtime: create_dataset on phase 9's raw buildings with
+     the C++ JSON parser and with Python's json, every NPZ array bit-equal (and
+     to phase 9's CLI preprocess); the NativeBatcher against the PyBatcher on
+     one scripted sequence of submits; the batcher the phase-4 server ran on;
+  17. the run's seconds and a {"kernels": [...]} line: each kernel at f32, bf16
+     and f16 storage ("dtype"), launches from that dtype's main path;
+  18. the server stopped, every thread joined, and the result line last.
 
 Every kernel is held against its plain version run in float64, the gradients
 too, by two rules: its max abs error within 4x the plain float32 version's own,
 plus 1e-4; and its norm-relative error within 4x the plain float32 version's
-own, plus 1e-4.  With bf16 storage the plain version is the bf16 twin (f32
-math, the same bf16 roundings) and the f64 reference rounds to bf16 where the
-kernel stores (each layer's output, and gx): the twin's distance from it is
-f32 rounding alone, where it moves a value across a bf16 rounding boundary,
-so the max abs rule also allows one bf16 ulp of the largest value.  The
+own, plus 1e-4.  With bf16 or f16 storage the plain version is the twin at
+that dtype (f32 math, the same roundings) and the f64 reference rounds to it
+where the kernel stores (each layer's output, and gx): the twin's distance
+from it is f32 rounding alone, where it moves a value across a rounding
+boundary, so the max abs rule also allows one ulp of that dtype (bf16: 8
+significant bits, f16: 11) at the largest value.  The
 training kernels are held so layer by layer on the kernel's own activations,
 at the train step's 105 slots, the stack equal to the chain of layer calls
-bit for bit; at f32 also as whole stacks.  A whole bf16 stack is
+bit for bit; at f32 also as whole stacks.  A whole 16-bit stack is
 not held by the rules: its rounding flips compound through the narrow
 GraphNorm layers (its distances are printed).
 Parity phases run f32 with TF32 off (torch.backends.cuda.matmul.allow_tf32
@@ -203,6 +224,8 @@ ROUNDING_FACTOR, ROUNDING_ATOL = 4.0, 1e-4
 REL_ATOL = 1e-4  # norm-relative error allowed beyond ROUNDING_FACTOR x the plain f32 version's
 LOGITS_ATOL = 1e-3  # fused vs plain generator logits, f32 both
 BF16 = torch.bfloat16
+F16 = torch.float16
+HALF_DTYPES = (BF16, F16)  # the kernels' 16-bit storage types
 REQUESTS, CLIENTS, MAX_BATCH = 48, 16, 16
 REQUEST_TIMEOUT_S = 120.0
 
@@ -241,7 +264,7 @@ def bound_of(B, R, chans, cmax, K, act_bytes=4):
     """(bound_ms, bound_by, bytes, flops) of one hourglass call on an H100 SXM.
 
     Bytes: x and out (B, R, cmax) at ``act_bytes`` an element (4: f32, 2:
-    bf16), the mask plane, the gid plane when K > 1, and the packed f32
+    bf16 or f16), the mask plane, the gid plane when K > 1, and the packed f32
     weights, each moved once.  Operations at the real
     ci x co widths: the GEMM (2 ci co a row), the two scores (4 co), the
     7-way aggregate (14 co) and GraphNorm statistics and apply (6 co).
@@ -261,23 +284,30 @@ GRAD_NAMES = ("gx", "gW", "gatt", "gvec")
 DROPOUT_RATE = 0.2
 
 
-def bf16_ulp(t) -> float:
-    """One bf16 ulp (8 significant bits) at the largest |value| of t."""
+def ulp16(t, dtype=BF16) -> float:
+    """One ulp of the 16-bit storage dtype (bf16: 8 significant bits, f16: 11) at the
+    largest |value| of t."""
     m = t.abs().max().item()
-    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+    nmant = round(-math.log2(torch.finfo(dtype).eps))  # stored significand bits: 7, 10
+    return 2.0 ** (math.floor(math.log2(m)) - nmant) if m > 0 else 0.0
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
 
 
 def f64_rule(got, want, want64):
     """Hold one kernel output against its plain version run in f64, by two rules.
 
     The plain version is the kernel's twin at its storage dtype: f32, or the
-    bf16 twin (f32 math, the same bf16 roundings).  At bf16 the f64 reference
-    takes the same bf16 inputs and rounds to bf16 where the kernel stores
-    (``Bf16Store``), so the twin's distance from it is f32 rounding alone.
-    Max abs: |kernel - f64| <= ROUNDING_FACTOR * |plain - f64| + ROUNDING_ATOL,
-    plus, for an output stored in bf16, one bf16 ulp of the largest value:
-    where f32 rounding moves a value across a bf16 rounding boundary the
-    stored value moves by one ulp, in the kernel or the twin or neither.
+    16-bit twin (bf16 or f16: f32 math, the same roundings).  At a 16-bit
+    storage the f64 reference takes the same 16-bit inputs and rounds to that
+    dtype where the kernel stores (``Store16``), so the twin's distance from it
+    is f32 rounding alone.  Max abs: |kernel - f64| <= ROUNDING_FACTOR * |plain
+    - f64| + ROUNDING_ATOL, plus, for an output stored in 16 bits, one ulp of
+    that dtype at the largest value: where f32 rounding moves a value across a
+    rounding boundary the stored value moves by one ulp, in the kernel or the
+    twin or neither.
     Norm-relative: ||kernel - f64|| / ||f64|| <= ROUNDING_FACTOR * (the same of
     plain) + REL_ATOL; a few cells where f32 rounding flips a ReLU (or a bf16
     rounding) barely move it, a missing or wrong term does.  Returns (ok,
@@ -287,13 +317,14 @@ def f64_rule(got, want, want64):
     err = (got.double() - p64).abs().max().item()
     err_k64 = (g64 - want64).abs().max().item()
     err_p64 = (p64 - want64).abs().max().item()
-    limit = ROUNDING_FACTOR * err_p64 + ROUNDING_ATOL + (bf16_ulp(want64) if want.dtype == BF16 else 0.0)
+    limit = ROUNDING_FACTOR * err_p64 + ROUNDING_ATOL + (
+        ulp16(want64, want.dtype) if want.dtype in HALF_DTYPES else 0.0)
     norm = max(want64.norm().item(), 1e-300)
     rel_k = (g64 - want64).norm().item() / norm
     rel_p = (p64 - want64).norm().item() / norm
     rel_limit = ROUNDING_FACTOR * rel_p + REL_ATOL
     ok = bool(torch.isfinite(got).all().item()) and err_k64 <= limit and rel_k <= rel_limit
-    pl = "plain " + ("f32" if want.dtype == torch.float32 else str(want.dtype).replace("torch.", ""))
+    pl = "plain " + ("f32" if want.dtype == torch.float32 else dtype_name(want.dtype))
     report = (f"(max |f64| {want64.abs().max().item():.3e}): vs {pl} {err:.3e}; vs f64 max abs: "
               f"kernel {err_k64:.3e}, {pl} {err_p64:.3e}, limit {limit:.3e}; norm-relative: "
               f"kernel {rel_k:.2e}, {pl} {rel_p:.2e}, limit {rel_limit:.2e} "
@@ -308,7 +339,7 @@ def train_bound(B, R, chans, cmax, backward, dropout, act_bytes=4):
     forward, x (ci channels) and the planes (8 floats a row) and the packed
     weights in, y (cmax) out; backward, x, gy (co), the planes and the weights
     in, gx (cmax) and the weight grads out; the activations x, y, gy and gx at
-    ``act_bytes`` an element (4: f32, 2: bf16), the rest f32.  What the kernels save in the
+    ``act_bytes`` an element (4: f32, 2: bf16 or f16), the rest f32.  What the kernels save in the
     forward for the backward is their design, not the function's, and is not
     counted.  Operations at the real ci x co widths: 2 ci co a row forward
     and 4 ci co backward, plus the elementwise work (28 co + 40 a row forward,
@@ -398,25 +429,26 @@ def with_grads(fn, leaves, gy):
     return y.detach(), torch.autograd.grad(y, leaves, gy)
 
 
-class Bf16Store(torch.autograd.Function):
-    """Identity that rounds to bf16 and back, forward and backward: in an f64
-    reference, where a bf16 kernel stores (a layer's output; its gx)."""
+class Store16(torch.autograd.Function):
+    """Identity that rounds to a 16-bit dtype and back, forward and backward: in an f64
+    reference, where a 16-bit kernel stores (a layer's output; its gx)."""
 
     @staticmethod
-    def forward(ctx, x):
-        return x.to(BF16).to(x.dtype)
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.to(dtype).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return g.to(BF16).to(g.dtype)
+        return g.to(ctx.dtype).to(g.dtype), None
 
 
 def stores(storage):
     """t -> t as a kernel with ``storage`` activations stores it: a wider t rounded
-    to bf16 both ways at bf16 storage (``Bf16Store``), else t itself."""
-    if storage != BF16:
+    to that dtype both ways at 16-bit storage (``Store16``), else t itself."""
+    if storage not in HALF_DTYPES:
         return lambda t: t
-    return lambda t: t if t.dtype == BF16 else Bf16Store.apply(t)
+    return lambda t: t if t.dtype == storage else Store16.apply(t, storage)
 
 
 def stack_fns(planes, keys, grid, K, chans, storage=torch.float32):
@@ -457,9 +489,11 @@ def kernel_branches(leaves, planes, key, grid, ci, co, K, levels):
     A ReLU or LeakyReLU argument within f32 rounding of 0 can fall on the
     other side in the kernel than in f64; its gradient then differs by a
     whole term in one cell.  A layer alone has a few such cells in 10^7, so
-    its references take the kernel's branches: ReLU on where the kernel's y
-    is above 0 (a dropped cell has no gradient either way), LeakyReLU slope
-    1 where the kernel's scores sum to >= 0.  Returns (branches, cells where
+    its references take the kernel's branches: ReLU on where the kernel's
+    saved bit says so (keyed, its f32 z > 0, kept: a dropped cell has no
+    gradient either way; not y > 0, since at f16 storage a positive z below
+    2^-25 stores as y = 0), LeakyReLU slope 1 where the kernel's scores sum
+    to >= 0.  Returns (branches, cells where
     the kernel's ReLU differs from f64's sign, LeakyReLU arguments that do).
     """
     from building_gan_torch.ops import gat_train as gt
@@ -471,10 +505,14 @@ def kernel_branches(leaves, planes, key, grid, ci, co, K, levels):
     with torch.no_grad():
         y, saved = gt.launch_forward(gt._load(), torch.cuda.current_stream(x.device).cuda_stream,
                                      x, planes, w, att, vec, key, meta)
-        scores = gt.saved_views(gt._load(), saved, x.shape, meta)["scores"]
-        a_s, a_d = scores[0], scores[1]
+        views = gt.saved_views(gt._load(), saved, x.shape, meta)
+        a_s, a_d = views["scores"][0], views["scores"][1]
         leaky = torch.stack([shift(a_s, 1, o) + a_d >= 0 for o in offs] + [a_s + a_d >= 0])
-        relu = y > 0
+        # channel c's bit: bit c // V of the row's word c % V (csrc/gat_train.cu, fwd_apply)
+        words = views["bits"]
+        ch = torch.arange(y.shape[-1], device=y.device)
+        relu = ((words[..., ch % words.shape[-1]] >> (ch // words.shape[-1]).to(torch.int32)) & 1
+                ).bool() & (ch < co)
         y64 = gt.layer_plain(x.double(), planes, w.double(), att.double(), vec.double(), key, grid,
                              K, levels)
         h64 = x.double() @ w.double()
@@ -502,7 +540,7 @@ def hold_chain(label, x, gy, planes, weights, keys, grid, K, chans, layers, stac
     """The kernel's ``layers`` each alone on the kernel's own activations, by both f64
     rules: forward on the kernel's output of the layer below (x for the first),
     backward on gy.  One layer does not compound rounding, so both rules are
-    tight there at either storage type (x's; at bf16 the f64 reference rounds
+    tight there at every storage type (x's; at 16 bits the f64 reference rounds
     where the kernel stores, ``stores``); the references take the kernel's
     branches.  ``stack``: (y, grads) of the kernel stack over every layer on (x,
     weights) and gy, which must equal bit for bit the chain of layer calls, each
@@ -584,7 +622,7 @@ def hold_chain(label, x, gy, planes, weights, keys, grid, K, chans, layers, stac
 
 
 def distances(label, got, want, want64):
-    """Print, and hold nothing: a whole bf16 stack's norm-relative distances, kernel vs
+    """Print, and hold nothing: a whole 16-bit stack's norm-relative distances, kernel vs
     its twin, twin vs f64 with the stores, kernel vs f64, for y and the grads."""
     rel = lambda a, b: ((a.double() - b.double()).norm() / b.double().norm()).item()  # noqa: E731
     say(f"{label}, whole stack (not held; held layer by layer below), norm-relative kernel vs twin "
@@ -656,28 +694,29 @@ def check_train_kernels(batch, dev):
 
 
 def hourglass_stored64(x, mask, Ws, atts, vecs, chans, gid, K):
-    """The plain hourglass in f64 on bf16 x, a layer at a time, each layer's output
-    rounded to bf16 as the bf16 kernel stores it: its f64 reference."""
+    """The plain hourglass in f64 on 16-bit x, a layer at a time, each layer's output
+    rounded to x's dtype as the 16-bit kernel stores it: its f64 reference."""
     from building_gan_torch.ops import hourglass as hg
 
     y = x.double()
     for l in range(len(chans)):
         y = hg.hourglass_plain(y, mask, Ws[l:l + 1].double(), atts[l:l + 1].double(),
-                               vecs[l:l + 1].double(), chans[l:l + 1], gid, K).to(BF16).double()
+                               vecs[l:l + 1].double(), chans[l:l + 1], gid, K).to(x.dtype).double()
     return y
 
 
-def check_bf16_kernels(batch, hg_inputs, dev):
-    """The three kernels with bf16 storage at full width, each against its plain bf16
-    twin (the same roundings, f32 math) and the plain version run in f64 on the same
-    bf16 inputs, rounded where the kernel stores, by the f64 rules.
+def check_16bit_kernels(batch, hg_inputs, dev, dtype=BF16):
+    """The three kernels with 16-bit storage (``dtype``, bf16 or f16) at full width, each
+    against its plain twin at that dtype (the same roundings, f32 math) and the plain
+    version run in f64 on the same inputs, rounded where the kernel stores, by the f64
+    rules.
 
     The serving hourglass at the server's shapes (K = 1 and K = 4); the generator
     (Cmax 128, 14 layers) and critic (Cmax 64, 6 layers) training stacks on every
     slot of the train batch (K = 6, dropout on), forward and gx / gW / gatt / gvec,
     each layer on the kernel's own activations (``hold_chain``; the whole stack's
     distances printed, not held); then the generator stack's two odd-width layers
-    (2 -> 1, 1 -> 2) alone at K = 3, whose bf16 rows are 2 and 4 bytes.
+    (2 -> 1, 1 -> 2) alone at K = 3, whose 16-bit rows are 2 and 4 bytes.
     Returns {kernel: largest max abs error against f64}.
     """
     from building_gan_torch.ops import dropout as drop
@@ -686,18 +725,19 @@ def check_bf16_kernels(batch, hg_inputs, dev):
 
     errs = {"hourglass_fwd": 0.0, "gat_train_fwd": 0.0, "gat_train_bwd": 0.0}
     x_hg, masks, Ws, atts, vecs, chans = hg_inputs
+    dn = {BF16: "bf16", F16: "f16"}[dtype]
     for K, mask, gid in masks:
-        args = (x_hg.to(BF16), mask, Ws, atts, vecs, chans, gid, K)
+        args = (x_hg.to(dtype), mask, Ws, atts, vecs, chans, gid, K)
         got = hg.hourglass_cuda(*args)
         twin = hg.hourglass_plain(*args)
         want64 = hourglass_stored64(*args)
         torch.cuda.synchronize()
-        if got.dtype != BF16:
-            raise AssertionError(f"the bf16 hourglass returned {got.dtype}")
+        if got.dtype != dtype:
+            raise AssertionError(f"the {dn} hourglass returned {got.dtype}")
         ok, report, err = f64_rule(got, twin, want64)
-        say(f"bf16 kernel hourglass K={K} ({x_hg.shape[0]} slots; plain = the bf16 twin) {report}")
+        say(f"{dn} kernel hourglass K={K} ({x_hg.shape[0]} slots; plain = the {dn} twin) {report}")
         if not ok:
-            raise AssertionError(f"bf16 hourglass kernel disagrees with its plain version at K={K}")
+            raise AssertionError(f"{dn} hourglass kernel disagrees with its plain version at K={K}")
         errs["hourglass_fwd"] = max(errs["hourglass_fwd"], err)
         del got, twin, want64
 
@@ -709,22 +749,22 @@ def check_bf16_kernels(batch, hg_inputs, dev):
     for name, hidden, repeat in (("generator", 128, 7), ("critic", 64, 3)):
         weights, tchans = perturbed_stack(hidden, repeat, gen, dev)
         keys = drop.draw_keys(len(tchans), kgen)
-        x = torch.randn(B, R, hidden, generator=gen).to(dev, BF16)
-        gy = torch.randn(B, R, hidden, generator=gen).to(dev, BF16)
-        fused, plain = stack_fns(planes, keys, grid, K, tchans, BF16)
+        x = torch.randn(B, R, hidden, generator=gen).to(dev, dtype)
+        gy = torch.randn(B, R, hidden, generator=gen).to(dev, dtype)
+        fused, plain = stack_fns(planes, keys, grid, K, tchans, dtype)
         leaves = (x, *weights)
-        label = (f"bf16 train kernel {name} stack (Cmax {hidden}, {len(tchans)} layers, K={K}, "
-                 f"{B} slots; plain = the bf16 twin)")
+        label = (f"{dn} train kernel {name} stack (Cmax {hidden}, {len(tchans)} layers, K={K}, "
+                 f"{B} slots; plain = the {dn} twin)")
         got = with_grads(fused, leaves, gy)
-        if got[0].dtype != BF16 or got[1][0].dtype != BF16:
-            raise AssertionError(f"the bf16 {name} stack returned {got[0].dtype} / {got[1][0].dtype}")
+        if got[0].dtype != dtype or got[1][0].dtype != dtype:
+            raise AssertionError(f"the {dn} {name} stack returned {got[0].dtype} / {got[1][0].dtype}")
         want = with_grads(plain, leaves, gy)
         want64 = with_grads(plain, [t.double() for t in leaves], gy.double())
         torch.cuda.synchronize()
         distances(label, got, want, want64)
         del want, want64
         torch.cuda.empty_cache()
-        layer_errs = [hold_chain(f"bf16 train kernel {name}", x, gy, planes, weights, keys, grid, K,
+        layer_errs = [hold_chain(f"{dn} train kernel {name}", x, gy, planes, weights, keys, grid, K,
                                  tchans, range(len(tchans)), stack=got)]
         del got
         if name == "generator":
@@ -734,7 +774,7 @@ def check_bf16_kernels(batch, hg_inputs, dev):
             xl = torch.zeros_like(x)
             xl[..., :tchans[6][0]] = x[..., :tchans[6][0]]
             layer_errs.append(hold_chain(
-                "bf16 train kernel odd width: generator", xl, gy,
+                f"{dn} train kernel odd width: generator", xl, gy,
                 gt.build_planes(batch.mask, batch.gid % 3, grid), weights, keys, grid, 3, tchans,
                 range(6, 8)))
         for fe, be in layer_errs:
@@ -743,9 +783,11 @@ def check_bf16_kernels(batch, hg_inputs, dev):
     return errs
 
 
-def train_phase(cfg, batch, dev, steps=TRAIN_STEPS):
+def train_phase(cfg, batch, dev, steps=TRAIN_STEPS, nonfinite=None):
     """The training main path: ``steps`` steps at full width at the config's dtypes;
-    -> (state, step ms, launches).  The launch counts are set to 0 first."""
+    -> (state, step ms, launches).  The launch counts are set to 0 first.  A step with
+    non-finite metrics raises, or with a ``nonfinite`` list is recorded there as
+    (step, names) and printed (f16's range: a property of the dtype, not a fault)."""
     from building_gan_torch.models.grid_models import GridVoxelGNNDiscriminator, GridVoxelGNNGenerator
     from building_gan_torch.ops import gat_train as gt
     from building_gan_torch.ops import hourglass as hg
@@ -781,8 +823,11 @@ def train_phase(cfg, batch, dev, steps=TRAIN_STEPS):
             f"accuracy {m['accuracy'].item():.4f}; layer launches fwd {got[0]} bwd {got[1]}, "
             f"dropout-byte launches {got[2]} (expect {want[0]} / {want[1]} / {want[2]}); peak device "
             f"memory {peak[-1]:.3f} GiB (torch.cuda.max_memory_allocated)")
-        if bad:
+        if bad and nonfinite is None:
             raise AssertionError(f"train step {i + 1}: non-finite {bad}")
+        if bad:
+            nonfinite.append((i + 1, bad))
+            say(f"train step {i + 1} ({tag}): NON-FINITE {bad} (recorded)")
         if got != want:
             raise AssertionError(f"train step {i + 1}: {got} layer launches, expected {want}")
     launches = (gt.fwd_launches.value, gt.bwd_launches.value)
@@ -850,8 +895,8 @@ def time_train_stacks(state, batch, dev, card, act_dtype=torch.float32):
     plain version run in f64 by both rules: each layer on the kernel's own
     activations, the stack equal to the chain of layer calls bit for bit
     (``hold_chain``), and at f32 the whole stack too.  The activations (x, y,
-    gy, gx) in ``act_dtype`` (f32, or the bf16 storage, whose plain stack is
-    the bf16 twin and whose f64 reference rounds where the kernel stores);
+    gy, gx) in ``act_dtype`` (f32, or a 16-bit storage, whose plain stack is
+    the twin at that dtype and whose f64 reference rounds where the kernel stores);
     then each stack's sub-kernel and layer times (stack_profile).
     Returns ({stack: {"fwd"/"bwd": (ms, plain ms, bound ms, bound by)}},
     (fwd err, bwd err)).
@@ -901,7 +946,7 @@ def time_train_stacks(state, batch, dev, card, act_dtype=torch.float32):
         del yk, yp, gp
         torch.cuda.empty_cache()
         dt = str(act_dtype).replace("torch.", "")
-        if act_dtype == torch.float32:  # a bf16 stack compounds its rounding flips (check_bf16_kernels)
+        if act_dtype == torch.float32:  # a 16-bit stack compounds its rounding flips (check_16bit_kernels)
             want64 = with_grads(stack_fns(planes, keys, grid, K, chans)[1],
                                 [t.double() for t in leaves], gy.double())
             label = (f"train stacks at the step's weights, {dt}: {name} ({len(chans)} layers, Cmax "
@@ -1616,28 +1661,43 @@ def grid_convs(cfg_t, batch_t, dev, card):
     return threads
 
 
-def edge_layout(dev, card):
-    """(b): the 512 buildings packed at the JAX default budgets; the fullest pack through 2
-    steps at bf16 for each conv (GATCONV also 1 at f32)."""
+@functools.lru_cache(maxsize=None)
+def edge_packs():
+    """(cfg, the 512 buildings' packs at the JAX default budgets on the CPU, host s)."""
     from building_gan_torch.config import Configuration
-    from building_gan_torch.data.batching import pack_budgets, pack_graphs, pack_need
+    from building_gan_torch.data.batching import pack_graphs
 
     cfg = Configuration(LAYOUT="edges", ENCODER_DROPOUT_RATE=DROPOUT_RATE)
     t = time.perf_counter()
+    packs = pack_graphs(list(train_samples()), cfg)
+    return cfg, tuple(packs), time.perf_counter() - t
+
+
+def fullest_edge_pack(dev):
+    """(edge cfg, the pack with the most real voxel nodes, on ``dev``)."""
+    cfg, packs, _ = edge_packs()
+    return cfg, max(packs, key=lambda p: float(p.voxel_mask.sum())).to(dev)
+
+
+def edge_layout(dev, card):
+    """(b): the 512 buildings packed at the JAX default budgets; the fullest pack through 2
+    steps at bf16 for each conv (GATCONV also 1 at f32)."""
+    from building_gan_torch.data.batching import pack_budgets, pack_need
+
     samples = list(train_samples())
-    packs = pack_graphs(samples, cfg)
+    cfg, packs, seconds = edge_packs()
     budgets = pack_budgets(cfg)
     names = ("graphs", "local nodes", "local edges", "voxel nodes", "voxel edges")
     need = np.array([pack_need(*s) for s in samples]).sum(0)
     say(f"edges: {len(samples)} buildings in {len(packs)} packs at the JAX default budgets "
-        f"({time.perf_counter() - t:.1f} s on the host); the set needs "
+        f"({seconds:.1f} s on the host); the set needs "
         + ", ".join(f"{n} {int(v)}" for n, v in zip(names, need)))
     for i, p in enumerate(packs):
         used = (int(p.graph_mask.sum()), int(p.local_mask.sum()), int(p.local_edge_mask.sum()),
                 int(p.voxel_mask.sum()), int(p.voxel_edge_mask.sum()))
         say(f"edges: pack {i} fill " + ", ".join(
             f"{n} {u}/{b} ({100 * u / b:.1f}%)" for n, u, b in zip(names, used, budgets)))
-    batch = max(packs, key=lambda p: float(p.voxel_mask.sum())).to(dev)
+    _, batch = fullest_edge_pack(dev)
     for conv in EDGE_CONVS:
         c = cfg.replace(GENERATOR_CONV_TYPE=conv, DISCRIMINATOR_CONV_TYPE=conv)
         plain_steps(c, batch, dev, REGISTRY_STEPS, f"edges {conv} (bfloat16)", card)
@@ -3027,6 +3087,25 @@ def phase_only(run) -> int:
     return 0
 
 
+def f16_only() -> int:
+    """``python3 chip_smoke.py --f16``: only phases 15 and 16 (makes the serving inputs, the
+    train batch and phase 9's raw and processed buildings itself; phase 16 reads the f16
+    server's batcher)."""
+    def run(root, dev, card):
+        cfg, ref_model, packed, seeds, samples, batch, zgen, z, x_hg = serving_inputs(dev)
+        masks = hourglass_masks(batch, zgen, dev)
+        args_k1 = (x_hg, masks[0][1], packed["Ws"], packed["atts"], packed["vecs"], packed["chans"],
+                   None, 1)
+        hg_inputs = (x_hg, masks, packed["Ws"], packed["atts"], packed["vecs"], packed["chans"])
+        cfg_t, batch_t = train_batch()
+        dp_data(root)
+        f16 = f16_phase((cfg, ref_model, samples, seeds, batch, z, args_k1), hg_inputs, cfg_t,
+                        batch_t.to(dev), dev, card)
+        native_phase(root, f16["served"]["server"], card)
+
+    return phase_only(run)
+
+
 def dp_only() -> int:
     """``python3 chip_smoke.py --dp``: only phase 13 (packs the train batch and writes its own
     processed buildings for the Trainer and the CLI)."""
@@ -3629,6 +3708,17 @@ def serving_inputs(dev):
     return cfg, ref_model, packed, seeds, samples, batch, zgen, z, x_hg
 
 
+def hourglass_masks(batch, zgen, dev):
+    """The hourglass checks' (K, mask, gid) at the server's shapes: the serve batch's own
+    buildings (K = 1), and a random 60% mask in four quadrant keys (K = 4)."""
+    B, F, Y, X = batch.mask.shape
+    mask_k4 = (torch.rand(B, F, Y, X, generator=zgen, device=dev) < 0.6).float()
+    iy = torch.arange(Y, device=dev)[:, None].expand(Y, X)
+    ix = torch.arange(X, device=dev)[None, :].expand(Y, X)
+    gid_k4 = ((ix >= X // 2).long() + 2 * (iy >= Y // 2).long()).expand(B, F, Y, X)
+    return ((1, batch.mask.contiguous(), None), (4, mask_k4, gid_k4.contiguous()))
+
+
 def hourglass_layout(args, card):
     """The serving kernel at the server's shapes: launches a stack call, the cluster it
     chooses and the others that fit (shared memory, clusters the card holds at once,
@@ -3727,6 +3817,234 @@ def time_hourglass_only(tree) -> int:
     return 0
 
 
+def finite_params(state) -> bool:
+    return all(bool(torch.isfinite(p).all()) for m in (state.generator, state.discriminator)
+               for p in m.parameters())
+
+
+def f64_generator(model, dev):
+    """A copy of a grid generator computing in f64 (its parameters f64)."""
+    import copy
+
+    m = copy.deepcopy(model).to(dev).double()
+    m.compute_dtype = torch.float64
+    return m
+
+
+def as_f64_batch(batch):
+    import dataclasses
+
+    return dataclasses.replace(batch, **{k: v.double() for k, v in vars(batch).items()
+                                         if torch.is_tensor(v) and v.is_floating_point()})
+
+
+def f16_serving(serving, dev, card):
+    """(b) the serving main path at f16, then on the serve batch the fused f16 generator
+    (fast_infer: the f16 hourglass kernel) and the plain f16 generator against the f64
+    generator on the same weights, z and noise: |fused - f64| <= ROUNDING_FACTOR x
+    |plain - f64| + LOGITS_ATOL; the plain f16 generator's distance from f64 with cuBLAS's
+    reduced-precision f16 reductions on (PyTorch's default) and off; the kernel and its
+    plain f16 twin timed.  -> (served, hourglass (ms, plain ms, bound ms, bound by))."""
+    from building_gan_torch.models import fast_infer
+    from building_gan_torch.models.grid_models import GridVoxelGNNGenerator
+    from building_gan_torch.ops import hourglass as hg
+
+    cfg, ref_model, samples, seeds, batch, z, args = serving
+    cfg_h = cfg.replace(COMPUTE_DTYPE="float16")
+    served = serve(cfg_h, samples, seeds, dev, card)
+    model = GridVoxelGNNGenerator(cfg_h).to(dev).eval()
+    model.load_state_dict(ref_model.state_dict())
+    noise = torch.zeros(z.shape[:-1] + (7,), device=dev)
+    with torch.no_grad():
+        fused, _, _ = fast_infer.infer(model, fast_infer.prepare(model, cfg_h), batch, z,
+                                       gumbel_noise=noise)
+        plain, _, _ = model(batch, z, gumbel_noise=noise)
+        ref64, _, _ = f64_generator(ref_model, dev)(as_f64_batch(batch), z.double(),
+                                                     gumbel_noise=noise.double())
+        flag = torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction
+        try:
+            torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = not flag
+            other, _, _ = model(batch, z, gumbel_noise=noise)
+        finally:
+            torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = flag
+    torch.cuda.synchronize()
+    dist = lambda a: (a.double() - ref64).abs().max().item()  # noqa: E731
+    err_f, err_p, err_o = dist(fused), dist(plain), dist(other)
+    limit = ROUNDING_FACTOR * err_p + LOGITS_ATOL
+    say(f"f16 generator on the serve batch ({batch.mask.shape[0]} slots), logits max abs vs the f64 "
+        f"generator (max |f64| {ref64.abs().max().item():.3e}): fused {err_f:.3e}, plain f16 "
+        f"{err_p:.3e}, limit {limit:.3e} {'ok' if err_f <= limit else 'FAIL'}; fused vs plain "
+        f"{(fused - plain).abs().max().item():.3e}")
+    say(f"f16 cuBLAS reductions: the plain f16 generator's logits max abs vs f64 with "
+        f"allow_fp16_reduced_precision_reduction {flag} (the default, the port's setting) "
+        f"{err_p:.3e}, {not flag} {err_o:.3e}; norm-relative "
+        f"{((plain.double() - ref64).norm() / ref64.norm()).item():.3e} / "
+        f"{((other.double() - ref64).norm() / ref64.norm()).item():.3e}")
+    if not (torch.isfinite(fused).all().item() and err_f <= limit):
+        raise AssertionError("fused f16 generator logits disagree with the plain f16 generator")
+    del model, ref64
+    args_h = (args[0].to(F16),) + args[1:]
+    with torch.no_grad():
+        for _ in range(3):
+            hg.hourglass_cuda(*args_h)
+            hg.hourglass_plain(*args_h)
+        torch.cuda.synchronize()
+        p1 = timed_ms(lambda: hg.hourglass_plain(*args_h), 10)
+        k1 = timed_ms(lambda: hg.hourglass_cuda(*args_h), 20)
+        kb = timed_ms(lambda: hg.hourglass_cuda(*((args[0].to(BF16),) + args[1:])), 20)
+        k2 = timed_ms(lambda: hg.hourglass_cuda(*args_h), 20)
+        p2 = timed_ms(lambda: hg.hourglass_plain(*args_h), 10)
+    B, F, Y, X, cmax = args[0].shape
+    bound = bound_of(B, F * Y * X, args[5], cmax, 1, act_bytes=2)
+    ms = (k1 + k2) / 2
+    say(f"time: f16 hourglass kernel {k1:.3f}/{k2:.3f} ms (bf16 between: {kb:.3f}), plain f16 "
+        f"{p1:.3f}/{p2:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}), {100 * bound[0] / ms:.2f}% of "
+        f"bound on {card}")
+    return served, (ms, (p1 + p2) / 2, bound[0], bound[1])
+
+
+def f16_phase(serving, hg_inputs, cfg_t, batch_t, dev, card):
+    """Phase 15: COMPUTE_DTYPE float16 at the config of record's widths.
+
+    (a) the three kernels at f16 storage against their plain f16 twins and the
+    storage-rounded f64 reference (``check_16bit_kernels``); (b) the f16 serve
+    (``f16_serving``); (c) 3 f16 train steps at GP_DTYPE "compute" on the train
+    batch (150 / 80 / 30 launches; non-finite metrics recorded, not raised) and
+    one at GP_DTYPE "float32", the stacks timed and held layer by layer at the
+    step's weights, one f16 eval batch; (d) one f16 step of the edge layout (phase
+    10's fullest pack) and of the transformer generator (phase 11's batch): finite,
+    their launches.  -> {"errs", "hourglass", "stacks", "launches", "served",
+    "nonfinite"}.
+    """
+    from building_gan_torch.ops import gat_train as gt
+    from building_gan_torch.ops import hourglass as hg
+    from building_gan_torch.train.step import make_eval_step
+
+    t = time.perf_counter()
+    errs = check_16bit_kernels(batch_t, hg_inputs, dev, F16)
+    say(f"phase 15a: f16 kernel checks {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    served, hg_time = f16_serving(serving, dev, card)
+    say(f"phase 15b: f16 serve {time.perf_counter() - t:.1f} s; served on "
+        f"{type(served['server']._batcher).__name__}")
+
+    t = time.perf_counter()
+    cfg_h = cfg_t.replace(COMPUTE_DTYPE="float16")
+    nonfinite = []
+    state_h, step_ms, launches = train_phase(cfg_h, batch_t, dev, nonfinite=nonfinite)
+    bytes_launches = gt.bytes_launches.value
+    peak_h = torch.cuda.max_memory_allocated(dev) / 2**30
+    n_real = int(batch_t.mask.sum().item())
+    step_s = float(np.mean(step_ms[1:])) / 1e3
+    say(f"train: {TRAIN_STEPS} f16 steps (GP compute): step {step_s * 1e3:.1f} ms (mean of steps "
+        f"2-{TRAIN_STEPS}), {n_real / step_s:.1f} real voxel nodes/s, peak device memory {peak_h:.3f} "
+        f"GiB; non-finite steps {nonfinite or 'none'} on {card}")
+    gp32_nonfinite = []
+    train_phase(cfg_h.replace(GP_DTYPE="float32"), batch_t, dev, steps=1, nonfinite=gp32_nonfinite)
+    nonfinite += [("GP float32",) + tuple(n) for n in gp32_nonfinite]
+    if not finite_params(state_h):  # time and hold the stacks on finite weights
+        from building_gan_torch.models.grid_models import GridVoxelGNNDiscriminator, GridVoxelGNNGenerator
+        from building_gan_torch.train.state import create_train_state
+
+        say("f16: the trained weights are not finite; the stacks are timed on fresh weights")
+        torch.manual_seed(cfg_h.SEED)
+        state_h = create_train_state(cfg_h, GridVoxelGNNGenerator(cfg_h),
+                                     GridVoxelGNNDiscriminator(cfg_h), device=dev)
+    stacks, (fe, be) = time_train_stacks(state_h, batch_t, dev, card, F16)
+    errs["gat_train_fwd"] = max(errs["gat_train_fwd"], fe)
+    errs["gat_train_bwd"] = max(errs["gat_train_bwd"], be)
+    h0, f0 = hg.launches.value, gt.fwd_launches.value
+    m, ms = wall_ms(lambda: make_eval_step(cfg_h, state_h)(batch_t,
+                                                           torch.Generator(device=dev).manual_seed(14)))
+    got = (hg.launches.value - h0, gt.fwd_launches.value - f0)
+    want = (1, len(state_h.discriminator.encoder.channels))
+    bad = [k for k, v in m.items() if not torch.isfinite(v).all().item()]
+    say(f"eval step (float16, {batch_t.mask.shape[0]} slots): {ms:.1f} ms; launches hourglass {got[0]}, "
+        f"training forward {got[1]} (expect {want[0]} and {want[1]}); g_loss {m['g_loss'].item():.5f}, "
+        f"f1 {m['f1'].item():.4f}; non-finite {bad or 'none'}")
+    if got != want:
+        raise AssertionError(f"f16 eval step: launches {got}, expected {want}")
+    if bad:
+        nonfinite.append(("eval", bad))
+    del state_h
+    torch.cuda.empty_cache()
+    say(f"phase 15c: f16 train steps, stacks and eval {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    cfg_e, pack = fullest_edge_pack(dev)
+    plain_steps(cfg_e.replace(COMPUTE_DTYPE="float16"), pack, dev, 1, "edges GATCONV (float16)", card)
+    del pack
+    cfg_x = cfg_t.replace(COMPUTE_DTYPE="float16", GENERATOR_ARCH="transformer", TRANSFORMER_LAYERS=4,
+                          TRANSFORMER_HEADS=4)
+    counted_steps(cfg_x, batch_t, dev, 1, "transformer (float16)", card, (0, 66, 66, 78))
+    torch.cuda.empty_cache()
+    say(f"phase 15d: f16 edge and transformer steps {time.perf_counter() - t:.1f} s")
+    return {"errs": errs, "hourglass": hg_time, "stacks": stacks, "launches": launches,
+            "bytes_launches": bytes_launches, "served": served, "nonfinite": nonfinite}
+
+
+def native_phase(root, server, card):
+    """Phase 16: the native host runtime.  (a) create_dataset on phase 9's raw buildings
+    with the native JSON parser and with use_native=False: every array of every NPZ
+    file bit-equal, and equal to the CLI's (phase 9, native by default); (b) the
+    NativeBatcher against the PyBatcher on one scripted sequence of submits: the same
+    batches; (c) the batcher the phase-4 server ran on."""
+    import os
+
+    from building_gan_torch.config import Configuration
+    from building_gan_torch.data.preprocess import create_dataset
+    from building_gan_torch.serving import batcher as B
+
+    raw = os.path.join(root, "raw")
+    dirs, secs = {}, {}
+    for name, native in (("native", True), ("python", False)):
+        dirs[name] = os.path.join(root, f"npz_{name}")
+        t = time.perf_counter()
+        n = create_dataset(Configuration(DATA_PATH=raw, SAVE_DATA_PATH=dirs[name]), verbose=False,
+                           use_native=native)
+        secs[name] = time.perf_counter() - t
+    names = sorted(os.listdir(dirs["native"]))
+    same = 0
+    for other in (dirs["python"], os.path.join(root, "npz")):
+        if sorted(os.listdir(other)) != names:
+            raise AssertionError(f"native and {other} hold different files")
+        for fname in names:
+            with np.load(os.path.join(dirs["native"], fname)) as a, np.load(os.path.join(other, fname)) as b:
+                if a.files != b.files or any(a[k].dtype != b[k].dtype or a[k].shape != b[k].shape
+                                             or a[k].tobytes() != b[k].tobytes() for k in a.files):
+                    raise AssertionError(f"{fname}: the native NPZ differs from {other}'s")
+            same += 1
+    say(f"native: create_dataset of {n} raw buildings (one process): native parser {secs['native']:.2f} "
+        f"s, json {secs['python']:.2f} s; {len(names)} NPZ files, every array bit-equal between the two "
+        f"and to phase 9's CLI preprocess ({same} comparisons)")
+
+    def scripted(b):
+        got = []
+        for group in ([0, 1, 2], list(range(3, 10)), [10], list(range(11, 16))):
+            for i in group:
+                b.submit(i)
+            while b.pending():
+                got.append(b.next_batch(poll_timeout_us=100_000))
+        b.complete([i for batch in got for i in batch])
+        for i in range(16):
+            b.wait(i, timeout_us=1_000_000)
+        b.close()
+        return got
+
+    kw = dict(max_batch=4, max_delay_us=1000)
+    native_b, plain_b = scripted(B.NativeBatcher(**kw)), scripted(B.PyBatcher(**kw))
+    say(f"native: NativeBatcher batches {native_b}, PyBatcher {plain_b}: "
+        f"{'the same' if native_b == plain_b else 'DIFFERENT'}")
+    if native_b != plain_b:
+        raise AssertionError("the native batcher's batches differ from the Python batcher's")
+    kind = type(server._batcher).__name__
+    say(f"native: the phase-4 server ran on {kind} (building_gan_torch/native/batcher.cc), its "
+        f"handle freed at stop: {server._batcher._h is None}")
+    if kind != "NativeBatcher" or server._batcher._h is not None:
+        raise AssertionError(f"the phase-4 server ran on {kind}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU", file=sys.stderr)
@@ -3766,13 +4084,10 @@ def main() -> int:
     F, Y, X = cfg.GRID_SHAPE
     chans = packed["chans"]
     cmax = cfg.GENERATOR_HIDDEN_DIM
-    mask_k1 = batch.mask.contiguous()
-    mask_k4 = (torch.rand(MAX_BATCH, F, Y, X, generator=zgen, device=dev) < 0.6).float()
-    iy = torch.arange(Y, device=dev)[:, None].expand(Y, X)
-    ix = torch.arange(X, device=dev)[None, :].expand(Y, X)
-    gid_k4 = ((ix >= X // 2).long() + 2 * (iy >= Y // 2).long()).expand(MAX_BATCH, F, Y, X)
+    masks = hourglass_masks(batch, zgen, dev)
+    mask_k1 = masks[0][1]
     max_abs_err = 0.0  # kernel vs the plain version in f64, the quantity checked
-    for K, mask, gid in ((1, mask_k1, None), (4, mask_k4, gid_k4.contiguous())):
+    for K, mask, gid in masks:
         args = (x_hg, mask, packed["Ws"], packed["atts"], packed["vecs"], chans, gid, K)
         got = hg.hourglass_cuda(*args)
         want = hg.hourglass_plain(*args)
@@ -3807,7 +4122,7 @@ def main() -> int:
 
     # 5. timing at the server's shapes (K=1), plain and kernel in turns
     t_phase = time.perf_counter()
-    args = (x_hg, mask_k1, packed["Ws"], packed["atts"], packed["vecs"], chans, None, 1)
+    args = args_k1 = (x_hg, mask_k1, packed["Ws"], packed["atts"], packed["vecs"], chans, None, 1)
     with torch.no_grad():
         for _ in range(3):
             hg.hourglass_cuda(*args)
@@ -3896,9 +4211,8 @@ def main() -> int:
 
     # 6b. all three kernels with bf16 storage, against their plain bf16 twins and f64
     t_phase = time.perf_counter()
-    bf16_errs = check_bf16_kernels(
-        batch_t, (x_hg, ((1, mask_k1, None), (4, mask_k4, gid_k4.contiguous())), packed["Ws"],
-                  packed["atts"], packed["vecs"], chans), dev)
+    hg_inputs = (x_hg, masks, packed["Ws"], packed["atts"], packed["vecs"], chans)
+    bf16_errs = check_16bit_kernels(batch_t, hg_inputs, dev)
     say(f"phase: bf16 kernel checks {time.perf_counter() - t_phase:.1f} s")
 
     # 7. the training main path
@@ -4000,11 +4314,24 @@ def main() -> int:
         # 14. floor sharding: two gloo ranks sharing the card, and on a host of several
         # cards NCCL at one rank a card
         sp_phase(root, dev, card)
+
+        # 15. COMPUTE_DTYPE float16: the kernels' f16 storage, the serve, the steps
+        t_phase = time.perf_counter()
+        f16 = f16_phase((cfg, ref_model, samples, seeds, batch, z, args_k1), hg_inputs, cfg_t,
+                        batch_t, dev, card)
+        threads += f16["served"]["threads"]
+        servers.append(f16["served"]["server"])
+        say(f"phase: float16 {time.perf_counter() - t_phase:.1f} s")
+
+        # 16. the native host runtime: the JSON parser on phase 9's buildings, the batcher
+        t_phase = time.perf_counter()
+        native_phase(root, server, card)
+        say(f"phase: native host runtime {time.perf_counter() - t_phase:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # 15. kernels line: the training kernels' times are one generator stack
-    # (14 layer launches) at the step's shapes; each kernel at f32 and at bf16 storage,
+    # 17. kernels line: the training kernels' times are one generator stack
+    # (14 layer launches) at the step's shapes; each kernel at f32, bf16 and f16 storage,
     # launches from that dtype's main path (the server's, 3 train steps)
     kernels = []
     for dt, launches_hg, errs, hg_t, stk, (fl, bl) in (
@@ -4013,8 +4340,10 @@ def main() -> int:
          (ms, plain_ms, bound_ms, bound_by), stacks["generator"], (fwd_launches, bwd_launches)),
         ("bfloat16", served_b["launches"], bf16_errs, (ms_b, plain_ms_b, bound_b[0], bound_b[1]),
          stacks_b["generator"], (fwd_launches_b, bwd_launches_b)),
+        ("float16", f16["served"]["launches"], f16["errs"], f16["hourglass"],
+         f16["stacks"]["generator"], f16["launches"]),
     ):
-        sfx = "" if dt == "float32" else "_bf16"
+        sfx = {"float32": "", "bfloat16": "_bf16", "float16": "_f16"}[dt]
         kernels.append({
             "name": "hourglass_fwd" + sfx, "route": "cuda", "dtype": dt,
             "source": "building_gan_torch/csrc/hourglass.cu",
@@ -4037,7 +4366,7 @@ def main() -> int:
     say(f"total: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
 
-    # 16. result line, last
+    # 18. result line, last
     if any(srv._thread.is_alive() for srv in servers) or any(th.is_alive() for th in threads):
         raise AssertionError("a server or client thread is still running")
     say(json.dumps({"ok": True, "device": {
@@ -4089,6 +4418,8 @@ if __name__ == "__main__":
         sys.exit(dp_only())
     if len(sys.argv) == 2 and sys.argv[1] == "--sp":
         sys.exit(sp_only())
+    if len(sys.argv) == 2 and sys.argv[1] == "--f16":
+        sys.exit(f16_only())
     if len(sys.argv) in (2, 3) and sys.argv[1] == "--time-hourglass":
         sys.exit(time_hourglass_only(sys.argv[2] if len(sys.argv) == 3 else None))
     sys.exit(main())

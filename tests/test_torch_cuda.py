@@ -70,19 +70,21 @@ def test_kernel_matches_plain_at_full_width(K, cuda_device):
     assert err_kernel <= ROUNDING_FACTOR * err_plain + ROUNDING_ATOL, (err_kernel, err_plain)
 
 
-def _bf16_ulp(t) -> float:
-    """One bf16 ulp (8 significant bits) at the largest |value| of t."""
+def _ulp(t, dtype=torch.bfloat16) -> float:
+    """One ulp of the 16-bit dtype (bf16: 8 significant bits, f16: 11) at the largest
+    |value| of t."""
     m = t.abs().max().item()
-    return 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
+    nmant = round(-np.log2(torch.finfo(dtype).eps))  # stored significand bits: 7, 10
+    return 2.0 ** (np.floor(np.log2(m)) - nmant) if m > 0 else 0.0
 
 
 def _stored64(x, mask, Ws, atts, vecs, chans, gid, K):
-    """The plain stack in f64 on bf16 x, a layer at a time, each layer's output
-    rounded to bf16 as the bf16 kernel stores it."""
+    """The plain stack in f64 on 16-bit x, a layer at a time, each layer's output
+    rounded to x's dtype as the 16-bit kernel stores it."""
     y = x.double()
     for l in range(len(chans)):
         y = hg.hourglass_plain(y, mask, Ws[l:l + 1].double(), atts[l:l + 1].double(),
-                               vecs[l:l + 1].double(), chans[l:l + 1], gid, K).to(torch.bfloat16).double()
+                               vecs[l:l + 1].double(), chans[l:l + 1], gid, K).to(x.dtype).double()
     return y
 
 
@@ -95,6 +97,17 @@ def test_kernel_bf16_matches_plain_at_full_width(K, cuda_device):
     rounding alone.  Max abs within 4x the twin's own plus 1e-4 and one bf16 ulp of
     the largest value (f32 rounding can move a stored value across a rounding
     boundary); norm-relative within 4x the twin's plus 1e-4."""
+    _hold_16bit_kernel(K, cuda_device, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+def test_kernel_f16_matches_plain_at_full_width(K, cuda_device):
+    """f16 storage, by the bf16 rules with one f16 ulp (11 significant bits)."""
+    _hold_16bit_kernel(K, cuda_device, torch.float16)
+
+
+def _hold_16bit_kernel(K, cuda_device, dtype):
     gen = torch.Generator().manual_seed(10 + K)
     B, F, Y, X = 4, 11, 12, 12
     torch.manual_seed(10 + K)
@@ -105,7 +118,7 @@ def test_kernel_bf16_matches_plain_at_full_width(K, cuda_device):
     ix = torch.arange(X).expand(B, F, Y, X)
     iy = torch.arange(Y)[:, None].expand(B, F, Y, X)
     gid = ((ix >= X // 2).long() + 2 * (iy >= Y // 2).long()) if K > 1 else None
-    x = torch.randn(B, F, Y, X, 128, generator=gen).to(cuda_device, torch.bfloat16)
+    x = torch.randn(B, F, Y, X, 128, generator=gen).to(cuda_device, dtype)
     args = (x, mask.to(cuda_device), Ws, atts, vecs, chans,
             None if gid is None else gid.to(cuda_device), K)
     twin = hg.hourglass_plain(*args)
@@ -117,11 +130,11 @@ def test_kernel_bf16_matches_plain_at_full_width(K, cuda_device):
     got = hg.hourglass_fwd(*args)
     torch.cuda.synchronize()
     assert hg.launches.value == before + 1
-    assert got.dtype == twin.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert got.dtype == twin.dtype == dtype and torch.isfinite(got).all()
     assert (twin.double() - unrounded64).abs().max().item() > 0  # the twin rounds
     err_kernel = (got.double() - want64).abs().max().item()
     err_twin = (twin.double() - want64).abs().max().item()
-    limit = ROUNDING_FACTOR * err_twin + ROUNDING_ATOL + _bf16_ulp(want64)
+    limit = ROUNDING_FACTOR * err_twin + ROUNDING_ATOL + _ulp(want64, dtype)
     assert err_kernel <= limit, (err_kernel, err_twin, limit)
     rel_kernel = ((got.double() - want64).norm() / want64.norm()).item()
     rel_twin = ((twin.double() - want64).norm() / want64.norm()).item()
@@ -138,7 +151,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(TypeError):
         hg.hourglass_fwd(x.double(), mask, Ws, atts, vecs, chans)
     with pytest.raises(TypeError):
-        hg.hourglass_fwd(x.half(), mask, Ws, atts, vecs, chans)
+        hg.hourglass_fwd(x.to(torch.int32), mask, Ws, atts, vecs, chans)
+    hg.hourglass_fwd(x.half(), mask, Ws, atts, vecs, chans)  # the three storage dtypes are taken
     with pytest.raises(ValueError):
         hg.hourglass_fwd(x, mask, Ws, atts, vecs, chans, num_graphs=2)  # no gid plane
     with pytest.raises(ValueError):

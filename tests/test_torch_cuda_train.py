@@ -69,37 +69,41 @@ def _grads(fn, leaves, gy):
     return [y.detach()] + list(torch.autograd.grad(y, leaves, gy))
 
 
-def _bf16_ulp(t) -> float:
-    """One bf16 ulp (8 significant bits) at the largest |value| of t."""
+def _ulp(t, dtype=torch.bfloat16) -> float:
+    """One ulp of the 16-bit dtype (bf16: 8 significant bits, f16: 11) at the largest
+    |value| of t."""
     m = t.abs().max().item()
-    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+    nmant = round(-math.log2(torch.finfo(dtype).eps))  # stored significand bits: 7, 10
+    return 2.0 ** (math.floor(math.log2(m)) - nmant) if m > 0 else 0.0
 
 
-class _Bf16Store(torch.autograd.Function):
-    """Identity that rounds to bf16 and back, forward and backward: in an f64
-    reference, where a bf16 kernel stores (a layer's output; its gx)."""
+class _Store(torch.autograd.Function):
+    """Identity that rounds to a 16-bit dtype and back, forward and backward: in an
+    f64 reference, where a 16-bit kernel stores (a layer's output; its gx)."""
 
     @staticmethod
-    def forward(ctx, x):
-        return x.to(torch.bfloat16).to(x.dtype)
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.to(dtype).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return g.to(torch.bfloat16).to(g.dtype)
+        return g.to(ctx.dtype).to(g.dtype), None
 
 
-def _stored(t):
-    return t if t.dtype == torch.bfloat16 else _Bf16Store.apply(t)
+def _stored(t, dtype=torch.bfloat16):
+    return t if t.dtype == dtype else _Store.apply(t, dtype)
 
 
 def _assert_f64_rules(got, want, want64):
-    """Max abs and norm-relative rules; an output the twin stores in bf16 also has one
-    bf16 ulp of its largest value (f32 rounding can move it across a rounding boundary)."""
+    """Max abs and norm-relative rules; an output the twin stores in 16 bits also has one
+    ulp of that dtype at its largest value (f32 rounding can move it across a rounding
+    boundary)."""
     for name, a, b, c in zip(("y", "gx", "gW", "gatt", "gvec"), got, want, want64):
         assert torch.isfinite(a).all(), name
         err_k = (a.double() - c).abs().max().item()
         err_p = (b.double() - c).abs().max().item()
-        ulp = _bf16_ulp(c) if b.dtype == torch.bfloat16 else 0.0
+        ulp = _ulp(c, b.dtype) if b.dtype in (torch.bfloat16, torch.float16) else 0.0
         assert err_k <= ROUNDING_FACTOR * err_p + ROUNDING_ATOL + ulp, (name, err_k, err_p)
         rel_k = ((a.double() - c).norm() / c.norm()).item()
         rel_p = ((b.double() - c).norm() / c.norm()).item()
@@ -158,9 +162,21 @@ def test_bf16_kernels_match_plain_forward_and_backward(hidden, repeat, K, cuda_d
     output and gradients equal bit for bit the chain of layer calls, each backward fed
     the kernel's gx of the layer above.  A whole bf16 stack is not held by the rules:
     its rounding flips compound through the narrow GraphNorm layers."""
+    _hold_16bit_layers(hidden, repeat, K, cuda_device, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,repeat,K", [(128, 7, 6), (64, 3, 1), (32, 5, 3)],
+                         ids=["generator_k6", "critic_k1", "odd_co1_k3"])
+def test_f16_kernels_match_plain_forward_and_backward(hidden, repeat, K, cuda_device):
+    """f16 storage, held as bf16 storage above, with one f16 ulp (11 significant bits)."""
+    _hold_16bit_layers(hidden, repeat, K, cuda_device, torch.float16)
+
+
+def _hold_16bit_layers(hidden, repeat, K, cuda_device, dtype):
     x, planes, Ws, atts, vecs, keys, chans = _stack(hidden, repeat, 4, K, hidden + K + 2, cuda_device)
-    x = x.to(torch.bfloat16)
-    gy = torch.randn(x.shape, device=cuda_device).to(torch.bfloat16)
+    x = x.to(dtype)
+    gy = torch.randn(x.shape, device=cuda_device).to(dtype)
     levels = drop.drop_levels(0.2)
 
     def fused(*a):
@@ -170,7 +186,7 @@ def test_bf16_kernels_match_plain_forward_and_backward(hidden, repeat, K, cuda_d
     got = _grads(fused, (x, Ws, atts, vecs), gy)
     torch.cuda.synchronize()
     assert (gt.fwd_launches.value - f0, gt.bwd_launches.value - b0) == (len(chans), len(chans))
-    assert [t.dtype for t in got] == [torch.bfloat16] * 2 + [torch.float32] * 3
+    assert [t.dtype for t in got] == [dtype] * 2 + [torch.float32] * 3
     xs = [x]
     with torch.no_grad():
         for l, (ci, co) in enumerate(chans):
@@ -182,8 +198,8 @@ def test_bf16_kernels_match_plain_forward_and_backward(hidden, repeat, K, cuda_d
         ci, co = chans[l]
         leaves = (xs[l], Ws[l], atts[l], vecs[l])
         kernel = lambda *a: gt.fused_layer(a[0], planes, *a[1:], keys[l], GRID, ci, co, K, levels)  # noqa: E731
-        one = lambda *a: _stored(gt.layer_plain(_stored(a[0]), planes, *a[1:], keys[l], GRID, K,  # noqa: E731
-                                                levels))
+        one = lambda *a: _stored(gt.layer_plain(_stored(a[0], dtype), planes, *a[1:], keys[l],  # noqa: E731
+                                                GRID, K, levels), dtype)
         want = _grads(one, leaves, gy)
         want64 = _grads(one, [a.double() for a in leaves], gy.double())
         _assert_f64_rules(_grads(kernel, leaves, gy), want, want64)
@@ -228,9 +244,10 @@ def test_wrapper_rejects_what_it_does_not_take(cuda_device):
     ci, co = chans[0]
     ok = (x, planes, Ws[0], atts[0], vecs[0], keys[0], GRID, ci, co, 1, 51)
     gt.fused_layer(*ok)
+    gt.fused_layer(x.half(), *ok[1:])  # the three storage dtypes are taken
     bad = [
         ((x.double(),) + ok[1:], TypeError),  # dtype
-        ((x.half(),) + ok[1:], TypeError),  # float16 storage: not ported
+        ((x.to(torch.int32),) + ok[1:], TypeError),
         ((x[:, :-1],) + ok[1:], ValueError),  # rows != grid
         ((x.cpu(),) + ok[1:], ValueError),  # device
         (ok[:2] + (Ws[0].cpu(),) + ok[3:], ValueError),

@@ -40,7 +40,7 @@ from building_gan_torch.ops import dropout as drop
 from building_gan_torch.ops import gat_train as gt
 from building_gan_torch.ops.hourglass import hourglass_channel_pairs
 
-from test_torch_kernel_emulated import EMU_BF16_HEADER, EMU_HEADER, emulated_source
+from test_torch_kernel_emulated import EMU_BF16_HEADER, EMU_FP16_HEADER, EMU_HEADER, emulated_source
 from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 TOL = 1e-4
@@ -54,6 +54,7 @@ def emulated_lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("cuda_emu_gt")
     (d / "cuda_runtime.h").write_text(EMU_HEADER)
     (d / "cuda_bf16.h").write_text(EMU_BF16_HEADER)
+    (d / "cuda_fp16.h").write_text(EMU_FP16_HEADER)
     with open(f"{_build.CSRC}/gat_train.cu") as f:
         src, n = emulated_source(f.read())
     # launch sites: forward 3, backward 4, bytes 1 (each pass launches one
@@ -159,13 +160,14 @@ def _hold_layers(emulated_lib, rng, K, grid, Ws, atts, vecs, chans, planes, keys
         x = want.detach().float()
 
 
-def _close_bf16(got, want, name):
-    """A bf16 result: within one bf16 ulp of the f64 value (2^-8 of it: the
-    rounding of the store is half of that) plus TOL of the largest magnitude."""
-    assert got.dtype == torch.bfloat16, name
+def _close_16bit(got, want, name, dtype=torch.bfloat16):
+    """A 16-bit result: within one ulp of the f64 value (half the dtype's epsilon of
+    it: 2^-8 at bf16, 2^-11 at f16; the rounding of the store is half of that) plus
+    TOL of the largest magnitude."""
+    assert got.dtype == dtype, name
     scale = want.abs().max().item() + 1e-6
     err = (got.double() - want).abs()
-    bound = want.abs() * 2.0**-8 + TOL * scale
+    bound = want.abs() * (torch.finfo(dtype).eps / 2) + TOL * scale
     assert (err <= bound).all(), f"{name}: max excess {(err - bound).max().item():.3e} (scale {scale:.3e})"
 
 
@@ -178,10 +180,27 @@ def test_emulated_bf16_layer_matches_plain(emulated_lib, B, F, Y, X, hidden, rep
     """bf16 storage (x, y, gy, gx): every row is 2 co bytes, so odd widths give rows
     no 4- or 8-byte boundary holds; the reference is layer_plain in f64 on the same
     bf16 values, each bf16 output within one ulp of it, the f32 weight grads as above."""
+    _hold_16bit_layers(emulated_lib, torch.bfloat16, B, F, Y, X, hidden, repeat, K, rate)
+
+
+@pytest.mark.parametrize(
+    "B,F,Y,X,hidden,repeat,K,rate",
+    [(2, 3, 4, 5, 4, 2, 3, 0.2), (2, 3, 4, 5, 12, 2, 2, 0.2)],
+    ids=["k3_co1_odd_rows", "k2_co3_co6_unaligned_rows"],
+)
+def test_emulated_f16_layer_matches_plain(emulated_lib, B, F, Y, X, hidden, repeat, K, rate):
+    """f16 storage, as bf16 storage above: each f16 output within one f16 ulp of the
+    f64 reference on the same f16 values.  The 2-byte rows of odd widths; the wide
+    lanes' 16-bit rows (co 64, 128) are the bf16 case's, which differs only in the
+    conversions (~40 s under the emulation)."""
+    _hold_16bit_layers(emulated_lib, torch.float16, B, F, Y, X, hidden, repeat, K, rate)
+
+
+def _hold_16bit_layers(emulated_lib, dtype, B, F, Y, X, hidden, repeat, K, rate):
     rng = np.random.default_rng(hidden + 11 * K)
     grid, Ws, atts, vecs, chans, planes, keys, levels, x = _case(rng, B, F, Y, X, hidden, repeat,
                                                                  K, rate)
-    x = x.to(torch.bfloat16)
+    x = x.to(dtype)
     for l, (ci, co) in enumerate(chans):
         key = keys[l] if levels else None
         meta = (ci, co, K, levels, grid, 0.2, 1e-5)
@@ -190,16 +209,16 @@ def test_emulated_bf16_layer_matches_plain(emulated_lib, B, F, Y, X, hidden, rep
         want = gt.layer_plain(xl, planes, w, att, vec, key, grid, K, levels)
         got, saved = gt.launch_forward(emulated_lib, None, x, planes, Ws[l], atts[l], vecs[l], key, meta)
         assert torch.isfinite(got).all()
-        _close_bf16(got, want.detach(), f"layer {l} forward")
+        _close_16bit(got, want.detach(), f"layer {l} forward", dtype)
         assert (got[..., co:] == 0).all()
 
         gy = torch.from_numpy(rng.normal(size=(B, x.shape[1], hidden)).astype(np.float32))
-        gy = gy.to(torch.bfloat16)
+        gy = gy.to(dtype)
         want_g = torch.autograd.grad((want * gy.double()).sum(), (xl, w, att, vec))
         got_g = gt.launch_backward(emulated_lib, None, gy, x, planes, Ws[l], atts[l], vecs[l],
                                    key, saved, meta)
-        assert [a.dtype for a in got_g] == [torch.bfloat16] + [torch.float32] * 3
-        _close_bf16(got_g[0], want_g[0], f"layer {l} gx")
+        assert [a.dtype for a in got_g] == [dtype] + [torch.float32] * 3
+        _close_16bit(got_g[0], want_g[0], f"layer {l} gx", dtype)
         for name, a, b in zip(("gW", "gatt", "gvec"), got_g[1:], want_g[1:]):
             assert torch.isfinite(a).all(), name
             _close(a, b, f"layer {l} {name}")

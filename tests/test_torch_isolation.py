@@ -1,10 +1,12 @@
-"""The port and chip_smoke.py import no JAX, flax, msgpack or building_gan_tpu.
+"""The port, chip_smoke.py and the port's scripts import no JAX, flax, msgpack or building_gan_tpu.
 
 The machine with the card has none of them, so one such import anywhere in
 the port, even of a module that is itself numpy-only, fails there at import.
 It has no tensorboardX either, so the port imports that only inside a
 function (the trainer's writer factory), never when a module is imported.
-The walk reads the sources with ``ast``; it imports nothing.
+The walk reads the sources with ``ast``; it imports nothing.  The port's
+native host runtime (``building_gan_torch/native``) is its own copy of the C++
+sources: no file there names the JAX package.
 """
 
 import ast
@@ -19,10 +21,12 @@ TRAINER_SLICE = ("data/pipeline.py", "checkpoint/ckpt.py", "train/trainer.py", "
                  "cli/main.py")
 DP_SLICE = ("parallel/mesh.py", "parallel/dp.py")
 SP_SLICE = ("parallel/sp.py",)
+NATIVE_SLICE = ("native/parser.py", "serving/batcher.py", "data/preprocess.py")
+SCRIPTS = ("scripts/torch_demo_train.py",)  # run on the card: the assay's entry point
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py")] + [os.path.join(ROOT, p) for p in SCRIPTS]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "building_gan_torch")):
         out += [os.path.join(dirpath, f) for f in sorted(files) if f.endswith(".py")]
     return out
@@ -61,8 +65,20 @@ def _import_time_nodes(tree):
 def test_walk_finds_the_port():
     paths = _sources()
     assert os.path.exists(paths[0]), "chip_smoke.py is missing"
-    for module in ("ops/hourglass.py",) + TRAINER_SLICE + DP_SLICE + SP_SLICE:
+    for module in ("ops/hourglass.py",) + TRAINER_SLICE + DP_SLICE + SP_SLICE + NATIVE_SLICE:
         assert any(p.endswith(os.path.join("building_gan_torch", *module.split("/"))) for p in paths)
+    for script in SCRIPTS:
+        assert os.path.join(ROOT, script) in paths and os.path.exists(os.path.join(ROOT, script))
+
+
+def test_native_sources_are_the_ports_own():
+    native = os.path.join(ROOT, "building_gan_torch", "native")
+    names = sorted(os.listdir(native))
+    assert {"batcher.cc", "buildingjson.cc", "parser.py"} <= set(names)
+    for name in names:
+        if os.path.isfile(os.path.join(native, name)):
+            with open(os.path.join(native, name)) as f:
+                assert "building_gan_tpu" not in f.read(), name
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))

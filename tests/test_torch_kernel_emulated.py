@@ -237,6 +237,26 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
 }
 """
 
+# cuda_fp16.h's storage type and its two conversions, through the host compiler's
+# _Float16 (IEEE binary16, round to nearest even, subnormals, overflow to inf).
+EMU_FP16_HEADER = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+struct __half { std::uint16_t bits; };
+inline float __half2float(__half h) {
+  _Float16 f;
+  std::memcpy(&f, &h.bits, 2);
+  return (float)f;
+}
+inline __half __float2half_rn(float f) {
+  const _Float16 h = (_Float16)f;
+  __half out;
+  std::memcpy(&out.bits, &h, 2);
+  return out;
+}
+"""
+
 # cooperative_groups' cluster API over the emulated cluster.
 EMU_CG_HEADER = r"""
 #pragma once
@@ -275,6 +295,7 @@ def emulated_lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("cuda_emu")
     (d / "cuda_runtime.h").write_text(EMU_HEADER)
     (d / "cuda_bf16.h").write_text(EMU_BF16_HEADER)
+    (d / "cuda_fp16.h").write_text(EMU_FP16_HEADER)
     (d / "cooperative_groups.h").write_text(EMU_CG_HEADER)
     with open(f"{_build.CSRC}/hourglass.cu") as f:
         raw = f.read()
@@ -299,15 +320,15 @@ def _run(lib, x, mask, Ws, atts, vecs, chans, gid, K, cluster):
     B, F, Y, X, cmax = x.shape
     L = len(chans)
     out = torch.full_like(x, float("nan"))  # every element must be written
-    bf16 = x.dtype == torch.bfloat16
-    vlast = torch.full(x.shape, float("nan")) if bf16 else None
+    storage = hg.storage_code(x)
+    vlast = torch.full(x.shape, float("nan")) if storage else None
     g = None if gid is None else gid.to(torch.int32).contiguous()
     chans_c = (ctypes.c_int * (2 * L))(*[c for pair in chans for c in pair])
     rc = lib.hg_forward(
         x.data_ptr(), mask.data_ptr(), None if g is None else g.data_ptr(), K,
         Ws.data_ptr(), atts.data_ptr(), vecs.data_ptr(), chans_c, L,
         B, F, Y, X, cmax, 0.2, 1e-5, out.data_ptr(), None if vlast is None else vlast.data_ptr(),
-        int(bf16), cluster, None, None,
+        storage, cluster, None, None,
     )
     assert rc == 0
     return out
@@ -372,13 +393,24 @@ def test_emulated_bf16_kernel_matches_plain(emulated_lib, case):
     in bf16 (the last layer's v in the f32 buffer).  Held against hourglass_plain in
     f64 without rounding: the kernel's error within twice the plain bf16 twin's own
     (its rounding is the error) plus 1e-4."""
+    _hold_16bit(emulated_lib, case, torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["k3_widths_not_multiple_of_4", "k1_cmax_6", "k2_halo_two_ctas_uneven"])
+def test_emulated_f16_kernel_matches_plain(emulated_lib, case):
+    """f16 storage, as bf16 storage above: the kernel's error from the unrounded f64
+    stack within twice the plain f16 twin's own plus 1e-4."""
+    _hold_16bit(emulated_lib, case, torch.float16)
+
+
+def _hold_16bit(emulated_lib, case, dtype):
     x, mask, Ws, atts, vecs, chans, gid, K, cluster = _emulated_case(case)
-    x = x.to(torch.bfloat16)
+    x = x.to(dtype)
     exact = hg.hourglass_plain(x.double(), mask, Ws.double(), atts.double(), vecs.double(), chans,
                                gid, K)
     twin = hg.hourglass_plain(x, mask, Ws, atts, vecs, chans, gid, K)
     got = _run(emulated_lib, x, mask, Ws, atts, vecs, chans, gid, K, cluster)
-    assert got.dtype == twin.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    assert got.dtype == twin.dtype == dtype and torch.isfinite(got.float()).all()
     err = (got.double() - exact).abs().max().item()
     twin_err = (twin.double() - exact).abs().max().item()
     assert twin_err > 0  # the rounding is there

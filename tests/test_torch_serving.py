@@ -174,13 +174,15 @@ def test_server_swap_params(serve_cfg, synthetic_samples):
     np.testing.assert_array_equal(after["logits"], want["logits"])
 
 
-@pytest.mark.parametrize("dtype,raises", [("bfloat16", False), ("float16", True), ("float32", False)])
+@pytest.mark.parametrize("dtype,raises", [("bfloat16", False), ("float16", False), ("float32", False),
+                                          ("float64", True)])
 def test_server_takes_float32_and_bfloat16(serve_cfg, dtype, raises):
-    """float32 and bf16 (the default) are served at that dtype; float16 is refused, naming the field."""
+    """float32, bf16 (the default) and float16 are served at that dtype; a name the port
+    does not compute in is refused, naming the field."""
     cfg = serve_cfg.replace(COMPUTE_DTYPE=dtype)
     weights = _weights(serve_cfg, 0)
     if raises:
-        with pytest.raises(ValueError, match="COMPUTE_DTYPE='float16' is not ported"):
+        with pytest.raises(ValueError, match=f"COMPUTE_DTYPE='{dtype}' is not ported"):
             InferenceServer(cfg, weights, max_batch=2, device="cpu")
     else:
         srv = InferenceServer(cfg, weights, max_batch=2, device="cpu")

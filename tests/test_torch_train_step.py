@@ -121,19 +121,21 @@ def test_train_state_defaults_to_the_card_and_step_refuses_another_device(step_c
         make_train_step(cfg, state)(batch, torch.Generator().manual_seed(1))
 
 
-@pytest.mark.parametrize("dtype,raises", [("bfloat16", False), ("float16", True), ("float32", False)])
+@pytest.mark.parametrize("dtype,raises", [("bfloat16", False), ("float16", False), ("float32", False),
+                                          ("float64", True)])
 def test_train_entry_points_take_float32_and_bfloat16(step_case, dtype, raises):
-    """create_train_state, make_train_step and make_eval_step take f32 and bf16;
-    float16 is refused, naming the field and the entry point."""
+    """create_train_state, make_train_step and make_eval_step take f32, bf16 and f16;
+    a name the port does not compute in is refused, naming the field and the entry point."""
     cfg, _, state = step_case
     other = cfg.replace(COMPUTE_DTYPE=dtype)
-    modules = (GridVoxelGNNGenerator(other), GridVoxelGNNDiscriminator(other))
     if raises:
+        modules = (GridVoxelGNNGenerator(cfg), GridVoxelGNNDiscriminator(cfg))
         for make, args in ((TS.create_train_state, modules), (make_train_step, (state,)),
                            (make_eval_step, (state,))):
-            with pytest.raises(ValueError, match=f"{make.__name__}: COMPUTE_DTYPE='float16'"):
+            with pytest.raises(ValueError, match=f"{make.__name__}: COMPUTE_DTYPE='{dtype}'"):
                 make(other, *args, **({"device": "cpu"} if make is TS.create_train_state else {}))
     else:
+        modules = (GridVoxelGNNGenerator(other), GridVoxelGNNDiscriminator(other))
         made = TS.create_train_state(other, *modules, device="cpu")
         for m in (made.generator, made.discriminator):
             assert m.compute_dtype == getattr(torch, dtype)
